@@ -1,0 +1,162 @@
+"""Port's checkpoint reader, weight carry-over, import rule and device rule."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from twoforone_torch.utils.artifacts import load_ema_params, trained_dir
+from twoforone_torch.utils.checkpoint import load_checkpoint, msgpack_restore
+from twoforone_torch.utils.convert import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "twoforone_torch")
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def test_msgpack_reader_matches_flax_on_chain10():
+    """Leaf for leaf, exactly: same tree, same types, dtypes, shapes, bytes."""
+    path = os.path.join(trained_dir("chain10"), "model-best.msgpack")
+    ours = load_checkpoint(path)
+    with open(path, "rb") as f:
+        ref = serialization.msgpack_restore(f.read())
+    ours_l, ref_l = dict(_leaves(ours)), dict(_leaves(ref))
+    assert ours_l.keys() == ref_l.keys()
+    assert len(ref_l) == 244
+    for k, r in ref_l.items():
+        o = ours_l[k]
+        assert type(o) is type(r), k
+        assert np.asarray(o).dtype == np.asarray(r).dtype, k
+        np.testing.assert_array_equal(o, r, err_msg=k)
+
+
+def test_msgpack_reader_scalars_strings_and_chunks():
+    tree = {
+        "a": np.arange(6, dtype=np.int32).reshape(2, 3),
+        "s": "text",
+        "i": -7,
+        "big": 2**40,
+        "f": 1.5,
+        "np": np.float64(2.25),
+        "nested": {"b": np.ones((0, 4), np.float32), "flag": True, "none": None},
+    }
+    data = serialization.msgpack_serialize(tree)
+    out = msgpack_restore(data)
+    np.testing.assert_array_equal(out["a"], tree["a"])
+    assert out["s"] == "text" and out["i"] == -7 and out["big"] == 2**40
+    assert out["f"] == 1.5 and out["np"] == 2.25
+    assert out["nested"]["b"].shape == (0, 4)
+    assert out["nested"]["flag"] is True and out["nested"]["none"] is None
+    chunked = {"w": {"__msgpack_chunked_array__": True, "shape": {"0": 2, "1": 2},
+                     "chunks": {"0": np.array([1.0, 2.0]), "1": np.array([3.0, 4.0])}}}
+    out = msgpack_restore(serialization.msgpack_serialize(chunked))
+    np.testing.assert_array_equal(out["w"], [[1.0, 2.0], [3.0, 4.0]])
+
+
+def test_params_from_jax_loads_into_port_model():
+    from twoforone_torch.models.graph_transformer import GraphTransformer
+
+    params = load_ema_params("chain10")
+    model = GraphTransformer(10, 64, 3, use_intrinsic_coords=True,
+                             use_abs_coords=False, use_distances=False)
+    sd = params_from_jax(params)
+    model.load_state_dict(sd)  # strict: every key and shape must match
+    np.testing.assert_array_equal(
+        model.layers_1_attn.to_q.weight.detach().numpy(),
+        params["layers_1_attn"]["to_q"]["kernel"].T,
+    )
+    np.testing.assert_array_equal(
+        model.layers_2_attn.edges_to_kv.weight.detach().numpy(),
+        params["layers_2_attn"]["edges_to_kv_kernel"].T,
+    )
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_flax_or_jax_package():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 15
+    banned = ("jax", "flax", "twoforone_tpu", "optax")
+    for path in files:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in banned, f"{path} imports {mod}"
+
+
+def _entry_points():
+    from twoforone_torch.core.diffusion import GaussianDiffusion
+    from twoforone_torch.dynamics.integrators import LangevinSimulation
+    from twoforone_torch.dynamics.langevin import LangevinDiffusion, make_diffusion_force_fn
+    from twoforone_torch.models.graph_transformer import GraphTransformer
+    from twoforone_torch.ops.fused_score_cl import augment_params_cl
+
+    model = GraphTransformer(5, 8, 1, use_intrinsic_coords=True,
+                             use_abs_coords=False, use_distances=False,
+                             heads=2, dim_head=4)
+    gd = GaussianDiffusion(model=model, num_atoms=5, norm_factor=2.0)
+    params = _model_params(model)
+    init = np.zeros((2, 5, 3), np.float32)
+
+    def force_fn(x):
+        return torch.zeros(x.shape[0]), -x
+
+    return {
+        "LangevinDiffusion": lambda **kw: LangevinDiffusion(
+            gd, params, init, n_timesteps=10, save_interval=5, t=5,
+            masses=[12.0] * 5, log=False, **kw),
+        "make_diffusion_force_fn": lambda **kw: make_diffusion_force_fn(
+            gd, params, 5, 1.0, **kw),
+        "LangevinSimulation": lambda **kw: LangevinSimulation(
+            force_fn=force_fn, initial_coordinates=init, length=10, save_interval=5, **kw),
+        "augment_params_cl": lambda **kw: augment_params_cl(model, params, **kw),
+    }
+
+
+def _model_params(model):
+    """A flax-style parameter tree for ``model`` from its own random init."""
+    tree = {}
+    for key, val in model.state_dict().items():
+        *mod, name = key.split(".")
+        arr = val.numpy()
+        if mod[-1] == "edges_to_kv":
+            mod, name = mod[:-1], "edges_to_kv_" + ("kernel" if name == "weight" else "bias")
+            arr = arr.T if name.endswith("kernel") else arr
+        elif name == "weight" and "norm" in mod[-1]:
+            name = "scale"
+        elif name == "weight":
+            name, arr = "kernel", arr.T
+        node = tree
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = arr
+    return tree
+
+
+@pytest.mark.parametrize("name", ["LangevinDiffusion", "make_diffusion_force_fn",
+                                  "LangevinSimulation", "augment_params_cl"])
+def test_entry_points_need_cuda_unless_cpu(name, monkeypatch):
+    """Default device is CUDA: without it an entry point raises; with
+    device="cpu" it runs on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    build(device="cpu")

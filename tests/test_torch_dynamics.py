@@ -1,0 +1,178 @@
+"""Port's integrators and Langevin driver against the JAX package.
+
+torch and JAX draw different random numbers from the same seed, so the
+parity tests make the noise with numpy and inject it on both sides.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from twoforone_tpu.dynamics import integrators as jint
+from twoforone_tpu.dynamics.langevin import LangevinDiffusion as JLD
+from twoforone_tpu.dynamics.langevin import make_diffusion_force_fn as jforce
+from twoforone_tpu.ops.geometry import center_zero as jcenter
+from twoforone_torch.core.diffusion import GaussianDiffusion
+from twoforone_torch.dynamics import integrators as tint
+from twoforone_torch.dynamics.langevin import LangevinDiffusion
+from twoforone_torch.models.graph_transformer import GraphTransformer
+from twoforone_torch.utils.artifacts import load_ema_params
+
+N = 10
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chain10():
+    from __graft_entry__ import _flagship
+    from twoforone_tpu.utils.artifacts import load_ema_params as jload
+
+    _, gd = _flagship()
+    return gd, jload(gd, "chain10")
+
+
+def _port_chain10():
+    model = GraphTransformer(N, 64, 3, use_intrinsic_coords=True,
+                             use_abs_coords=False, use_distances=False)
+    gd = GaussianDiffusion(model=model, num_atoms=N, timesteps=1000,
+                           norm_factor=3.113133430480957, loss_weights="higheruntil_100")
+    return gd, load_ema_params("chain10")
+
+
+def test_baoab_and_overdamped_steps_match_jax():
+    """Elementwise f32 arithmetic in the same order: agreement to 1 ulp-ish
+    (atol 1e-6 on O(1) values)."""
+    rng = np.random.default_rng(0)
+    x, v, f, noise = (rng.normal(size=(8, 5, 3)).astype(np.float32) for _ in range(4))
+    masses = np.array([12.0, 12.0, 13.0, 12.0, 14.0], np.float32)
+    args = (2e-3, 0.998, 0.0632, 1.7)
+    jx, jv = jint.baoab_step(*map(jnp.asarray, (x, v, f, noise)), args[0],
+                             jnp.asarray(masses), *args[1:])
+    tx, tv = tint.baoab_step(*map(torch.from_numpy, (x, v, f, noise)), args[0],
+                             torch.from_numpy(masses), *args[1:])
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-6)
+    jo = jint.overdamped_step(jnp.asarray(x), jnp.asarray(f), jnp.asarray(noise), 0.01, 2.0)
+    to = tint.overdamped_step(torch.from_numpy(x), torch.from_numpy(f),
+                              torch.from_numpy(noise), 0.01, 2.0)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6)
+
+
+BENCH = dict(t=20, temp_data=340, temp_sim=340, dt=2e-3, masses=[12.0] * N,
+             friction=1.0, kb="consistent", restraint_k=50.0, max_force=1e3)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ten_steps():
+    """Start, injected noise and the JAX loop's final coordinates (shared by
+    both parametrisations)."""
+    jgd, jparams = _jax_chain10()
+    rng = np.random.default_rng(5)
+    init = rng.normal(size=(16, N, 3)).astype(np.float32)
+    init = (init - init.mean(axis=1, keepdims=True)) * jgd.norm_factor
+    noise = rng.normal(size=(10, 16, N, 3)).astype(np.float32)
+
+    jd = JLD(jgd, jparams, init, n_timesteps=10, save_interval=10, log=False, **BENCH)
+    sim = jd.sim
+    x, v = jnp.asarray(init / jd.norm_factor), jnp.zeros((16, N, 3))
+    force_fn = jax.jit(jforce(jgd, jparams, 20, jd.kb_inv / 340))
+    for k in range(10):
+        x = jcenter(x)
+        _, forces = force_fn(x)
+        forces = jnp.clip(forces, -1e3, 1e3) - 50.0 * x
+        x, v = jint.baoab_step(x, v, forces, jnp.asarray(noise[k]), sim.dt, sim._masses,
+                               sim.vscale, sim.noisescale, sim.beta)
+    return init, noise, np.asarray(x) * jd.norm_factor
+
+
+@pytest.mark.parametrize("fused", ["never", "cl"])
+def test_ten_langevin_steps_match_jax_loop(fused):
+    """bench.py's settings on chain10 forces, 16 chains, 10 BAOAB steps with
+    the same injected noise. fused="cl" runs the fused kernel's plain
+    version (CPU tensors). Tolerance 1e-4 relative to the largest
+    coordinate: per-step force differences of ~1e-6 relative compound over
+    ten steps."""
+    gd, params = _port_chain10()
+    init, noise, ref = _jax_ten_steps()
+
+    td = LangevinDiffusion(gd, params, init, n_timesteps=10, save_interval=10, log=False,
+                           fused=fused, device="cpu", **BENCH)
+    draws = iter(torch.from_numpy(noise))
+    td.sim._draw_noise = lambda like: next(draws)
+    out = td.sample()
+    assert out.shape == (16, N, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("kb", ["consistent", "kcal"])
+def test_driver_units_auto_dt_and_force_scale_match_jax(kb):
+    """kb_inv, auto-dt (dt=None) with dt_scale, beta and the force scale are
+    the same Python floats as JAX's (they read the same float32 buffers);
+    forces agree to the score-net tolerance."""
+    jgd, jparams = _jax_chain10()
+    gd, params = _port_chain10()
+    init = np.random.default_rng(1).normal(size=(4, N, 3)).astype(np.float32)
+    kw = dict(n_timesteps=20, save_interval=10, t=20, temp_data=340, temp_sim=360,
+              dt=None, masses=[12.0] * N, friction=1.0, kb=kb, log=False, dt_scale=0.5)
+    jd = JLD(jgd, jparams, init, **kw)
+    td = LangevinDiffusion(gd, params, init, device="cpu", **kw)
+    assert td.kb_inv == jd.kb_inv
+    assert td.sim.dt == jd.sim.dt
+    assert td.sim.beta == jd.sim.beta
+    assert td.sim.vscale == jd.sim.vscale and td.sim.noisescale == jd.sim.noisescale
+    expected_scale = 1.0 / (jd.kb_inv / 340 * float(jgd.buffers.sqrt_one_minus_alphas_cumprod[20]))
+    assert td.force_fn.scale == expected_scale
+    x = init / gd.norm_factor
+    _, jf = jax.jit(jforce(jgd, jparams, 20, jd.kb_inv / 340))(jnp.asarray(x))
+    _, tf = td.force_fn(torch.from_numpy(x))
+    jf = np.asarray(jf)
+    np.testing.assert_allclose(tf.numpy(), jf, atol=2e-5 * np.abs(jf).max(), rtol=0)
+
+
+def _harmonic(x):
+    return 0.5 * torch.sum(x**2, dim=(1, 2)), -x
+
+
+@pytest.mark.parametrize("friction", [1.0, None])
+def test_resume_equals_uninterrupted_run(friction, tmp_path):
+    """state/load_state across a fresh object continues the same trajectory
+    bit for bit (generator state included); chunking is invisible too."""
+    init = np.random.default_rng(2).normal(size=(6, 4, 3)).astype(np.float32)
+    kw = dict(force_fn=_harmonic, initial_coordinates=init, dt=0.01, beta=1.0,
+              friction=friction, masses=[1.0] * 4 if friction else None, length=200,
+              save_interval=10, random_seed=7, device="cpu", restraint_k=0.5,
+              max_force=3.0)
+    full = tint.LangevinSimulation(**kw)
+    ref = full.simulate()
+
+    first = tint.LangevinSimulation(steps_per_chunk=30, **kw)
+    a = first.simulate(sub_interval=100)
+    state = first.state
+    second = tint.LangevinSimulation(**kw)
+    second.load_state(state)
+    b = second.simulate(sub_interval=100)
+    np.testing.assert_array_equal(np.concatenate([a, b], axis=1), ref)
+    np.testing.assert_array_equal(second.state["x"], full.state["x"])
+    assert second.state["t"] == 200
+    if friction:
+        assert second.kinetic_energies.shape == (6, 10)
+
+
+def test_export_and_tempering_ramp(tmp_path):
+    init = np.random.default_rng(3).normal(size=(3, 4, 3)).astype(np.float32)
+    sim = tint.LangevinSimulation(
+        force_fn=_harmonic, initial_coordinates=init, dt=0.01, beta=1.0, friction=1.0,
+        masses=[1.0] * 4, length=40, save_interval=10, export_interval=20,
+        filename=str(tmp_path / "run"), save_forces=True, device="cpu", random_seed=1,
+    )
+    traj = sim.simulate(reference_beta=0.5)
+    assert traj.shape == (3, 4, 4, 3) and np.isfinite(traj).all()
+    for k in ("000", "001"):
+        coords = np.load(tmp_path / f"run_coords_{k}.npy")
+        assert coords.shape == (3, 2, 4, 3)
+        assert np.load(tmp_path / f"run_forces_{k}.npy").shape == (3, 2, 4, 3)
+        assert np.load(tmp_path / f"run_kineticenergy_{k}.npy").shape == (3, 2)
+    np.testing.assert_array_equal(np.load(tmp_path / "run_coords_001.npy"), traj[:, 2:])

@@ -1,0 +1,203 @@
+"""Diffusion-model force field -> Langevin dynamics driver (port of
+``dynamics/langevin.py``).
+
+- :func:`make_diffusion_force_fn` turns the learned score at one fixed noise
+  level ``t`` into a CG force field,
+  ``F = -eps_hat(x, t) / kbt_inv / sqrt(1 - alpha_bar_t)``.
+- :class:`LangevinDiffusion` handles units (KB in g/mol, Angstrom, ps, K),
+  the norm-factor algebra and auto-dt, and runs BAOA(F)B.
+
+Force paths (``fused``): ``"cl"`` is the fused CUDA force kernel
+(:mod:`twoforone_torch.ops.fused_score_cl`), ``"never"`` the plain
+``GraphTransformer`` with autograd, and ``"auto"`` picks ``"cl"`` whenever the
+model has the production edge configuration, at most
+``VERIFIED_MAX_N`` beads, and the device is CUDA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from twoforone_torch.data.molecules import AVOGADRO, JPERKCAL, KB, KBOLTZMANN
+from twoforone_torch.dynamics.integrators import LangevinSimulation
+from twoforone_torch.utils.device import resolve_device
+
+
+def resolve_fused_mode(model, fused: str, device) -> str:
+    """Resolve ``fused="auto"`` to ``"cl"`` or ``"never"``; explicit values
+    pass through untouched."""
+    if fused != "auto":
+        return fused
+    from twoforone_torch.ops.fused_score_cl import VERIFIED_MAX_N
+
+    if (torch.device(device).type == "cuda" and model.is_production_edge_config
+            and model.num_beads <= VERIFIED_MAX_N):
+        return "cl"
+    return "never"
+
+
+def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
+                            fused: str = "never", device="cuda"):
+    """Build ``x -> (potential, forces)`` from a diffusion model at noise level t.
+
+    ``params`` is the flax parameter tree (nested dict of numpy arrays, see
+    :func:`twoforone_torch.utils.artifacts.load_ema_params`). ``x`` is in
+    *normalized* units (divided by norm_factor). The potential returned is
+    zeros. The returned function carries the force scale as ``.scale``.
+    """
+    device = resolve_device(device)
+    buf = diffusion.buffers
+    # Read from the float32 buffer, as the JAX driver does.
+    sqrt_one_minus = float(buf.sqrt_one_minus_alphas_cumprod[t])
+    t_norm = float(t) / diffusion.timesteps
+    scale = 1.0 / (kbt_inv * sqrt_one_minus)
+    model = diffusion.model
+    mode = resolve_fused_mode(model, fused, device)
+
+    if mode == "cl":
+        from twoforone_torch.ops.fused_score_cl import augment_params_cl, fused_force_cl
+
+        folded = augment_params_cl(model, params, device)
+
+        def eps_fn(x):
+            return fused_force_cl(x, t_norm, folded)
+    elif mode == "never":
+        import copy
+
+        from twoforone_torch.models.graph_transformer import score_forward
+        from twoforone_torch.utils.convert import params_from_jax
+
+        net = copy.deepcopy(model).to(device)
+        net.load_state_dict(params_from_jax(params))
+        net.eval()
+
+        def eps_fn(x):
+            tt = torch.full((x.shape[0],), t_norm, dtype=torch.float32, device=x.device)
+            return score_forward(net, x, tt)
+    else:
+        raise ValueError(f"unknown fused mode {fused!r} (auto, cl, never)")
+
+    def force_fn(x):
+        forces = -eps_fn(x) * scale
+        return torch.zeros(x.shape[0], dtype=torch.float32, device=x.device), forces
+
+    force_fn.scale = scale
+    force_fn.mode = mode
+    return force_fn
+
+
+class LangevinDiffusion:
+    """Simulate Langevin dynamics from a trained diffusion model.
+
+    Normalizes the initial coordinates, converts the score into forces with
+    consistent units, auto-derives dt when not given, runs BAOA(F)B on
+    ``device``, and rescales the saved trajectory back to data units.
+    """
+
+    def __init__(
+        self,
+        diffusion,
+        params,
+        init_mol,
+        n_timesteps: int = 1000000,
+        save_interval: int = 250,
+        t: int = 15,
+        temp_data: float = 300,
+        temp_sim: float = 300,
+        dt: Optional[float] = 2e-3,
+        masses: Sequence[float] = (12.8,) * 5,
+        friction: Optional[float] = 1,
+        kb: str = "consistent",
+        random_seed: Optional[int] = None,
+        steps_per_chunk: Optional[int] = None,
+        log: bool = True,
+        fused: str = "auto",
+        restraint_k: float = 0.0,
+        max_force: Optional[float] = None,
+        dt_scale: float = 1.0,
+        device="cuda",
+    ):
+        device = resolve_device(device)
+        self.norm_factor = float(diffusion.norm_factor)
+        init_sample = np.asarray(init_mol, dtype=np.float32) / self.norm_factor
+        buf = diffusion.buffers
+        self.one_minus_alphas_cumprod = 1.0 - float(buf.alphas_cumprod[t])
+
+        if kb == "consistent":
+            self.kb_inv = 1.0 / KB * self.norm_factor**2
+        elif kb == "kcal":
+            self.kb_inv = JPERKCAL / KBOLTZMANN / AVOGADRO * (self.norm_factor**2) / 100
+        else:
+            raise ValueError("Wrong kb value")
+
+        self.force_fn = make_diffusion_force_fn(
+            diffusion, params, t, kbt_inv=self.kb_inv / temp_data,
+            fused=fused, device=device,
+        )
+
+        if friction is None:
+            friction_aux = 1.0
+            diffusion_constant = 1.0 / masses[0]
+        else:
+            friction_aux = friction
+            diffusion_constant = 1.0
+        if dt is None:
+            # Auto-dt from the noise floor:
+            # dt = (1 - alpha_bar_t) * gamma * m * kb_inv / T_data
+            dt = (
+                self.one_minus_alphas_cumprod * friction_aux * masses[0]
+                * self.kb_inv / temp_data
+            )
+        # dt_scale < 1 trades wall-clock for lower O(dt^2) stationary bias.
+        dt = dt * dt_scale
+
+        self.sim = LangevinSimulation(
+            force_fn=self.force_fn,
+            initial_coordinates=init_sample,
+            length=n_timesteps,
+            save_interval=save_interval,
+            beta=self.kb_inv / temp_sim,
+            save_potential=False,
+            log_interval=save_interval if log else None,
+            log_type="print",
+            diffusion=diffusion_constant,
+            masses=list(masses),
+            friction=friction,
+            dt=dt,
+            random_seed=random_seed,
+            steps_per_chunk=steps_per_chunk,
+            restraint_k=restraint_k,
+            max_force=max_force,
+            device=device,
+        )
+
+        if log:
+            fr = 1.0 if friction is None else friction
+            print(f"norm factor:{self.norm_factor}")
+            print(f"Diffusion model Beta : {float(buf.betas[t])}")
+            print(f"Diffusion model sqrt_alphas_cumprod {float(buf.sqrt_alphas_cumprod[t])}")
+            print(
+                "Diffusion model sqrt_one_minus_alphas_cumprod "
+                f"{float(buf.sqrt_one_minus_alphas_cumprod[t])}"
+            )
+            print(f"Diffusion model one_minus_alphas_cumprod {self.one_minus_alphas_cumprod}")
+            print(
+                f"dt*kb*T/M/gamma: {dt * temp_data / self.kb_inv / masses[0] / fr} "
+                "(should be on a similar scale as one_minus_alphas_cumprod)"
+            )
+            print(f"dt: {dt: .8f} (ps)")
+            print(f"KbT: {temp_data / self.kb_inv: .4f}")
+
+    def sample(self, reference_temp: Optional[float] = None) -> np.ndarray:
+        """Run the simulation; return (n_frames_total, n_beads, 3) in Angstrom
+        (all chains concatenated). ``reference_temp`` (K) enables the
+        integrator's tempering ramp."""
+        reference_beta = (
+            None if reference_temp is None else self.kb_inv / float(reference_temp)
+        )
+        traj = self.sim.simulate(reference_beta=reference_beta)
+        traj = traj.reshape(-1, traj.shape[2], traj.shape[3])
+        return traj * self.norm_factor

@@ -1,0 +1,236 @@
+"""Graph-transformer score network (port of ``models/graph_transformer.py``).
+
+Behavioral contract, the same as the JAX module:
+
+- node features = [bead one-hot, (abs coords)?, normalized time];
+- edge features = coordinate differences and/or *squared* distances, with
+  ``diff[i, j] = x_j - x_i``;
+- per block: PreNorm(LayerNorm, eps 1e-5) -> Attention -> GatedResidual
+  (gate input ``[x, res, x - res]``), then PreNorm -> FeedForward(4x, exact
+  GELU) -> GatedResidual;
+- no attention mask;
+- ``conservative=True`` predicts a per-node energy and forces are
+  ``-torch.autograd.grad`` of the summed energy with respect to the *centred*
+  coordinates (:func:`score_forward`).
+
+Parameter names follow the flax parameter tree of the JAX module (module
+path joined by dots), with torch's conventions for the leaves: ``kernel``
+becomes ``weight`` stored ``(out, in)``, LayerNorm ``scale`` becomes
+``weight``, and the attention's ``edges_to_kv_kernel``/``edges_to_kv_bias``
+become the ``edges_to_kv`` Linear. :func:`twoforone_torch.utils.convert.params_from_jax`
+maps a flax tree onto these names.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from twoforone_torch.ops.attention import (
+    edge_biased_attention,
+    geometric_edge_attention_packed,
+)
+from twoforone_torch.ops.geometry import center_zero
+
+
+class GatedResidual(nn.Module):
+    """Sigmoid-gated residual merge."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.proj = nn.Linear(3 * dim, 1, bias=False)
+
+    def forward(self, x, res):
+        gate = torch.sigmoid(self.proj(torch.cat([x, res, x - res], dim=-1)))
+        return x * gate + res * (1.0 - gate)
+
+
+class Attention(nn.Module):
+    """Edge-biased attention over beads, geometric (production) or general
+    (explicit edge tensor) path; identical math."""
+
+    def __init__(self, dim: int, edge_dim: int, heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(dim, inner)
+        self.to_kv = nn.Linear(dim, 2 * inner)
+        self.edges_to_kv = nn.Linear(edge_dim, inner)
+        self.to_out = nn.Linear(inner, dim)
+
+    def forward(self, nodes, edges=None, geom=None):
+        b, n, _ = nodes.shape
+        h, dh = self.heads, self.dim_head
+        q = self.to_q(nodes).view(b, n, h, dh)
+        k, v = self.to_kv(nodes).chunk(2, dim=-1)
+        k = k.reshape(b, n, h, dh)
+        v = v.reshape(b, n, h, dh)
+        w_e = self.edges_to_kv.weight.t()  # (De, inner)
+        b_e = self.edges_to_kv.bias
+        scale = dh**-0.5
+        if geom is not None:
+            x, w_emb, b_emb, has_diff, has_dist = geom
+            # Fold edge_embedding and edges_to_kv into one affine map of the
+            # raw channels: K_comb (C, H, dh), b_comb (H, dh).
+            k_comb = (w_emb @ w_e).view(-1, h, dh)
+            b_comb = (b_emb @ w_e + b_e).view(h, dh)
+            k_diff = k_comb[:3] if has_diff else None
+            k_dist = k_comb[3 if has_diff else 0] if has_dist else None
+            out = geometric_edge_attention_packed(
+                q, k, v, x, k_diff, k_dist, b_comb, scale
+            )
+        else:
+            out = edge_biased_attention(
+                q, k, v, edges, w_e.view(-1, h, dh), b_e.view(h, dh), scale
+            )
+        return self.to_out(out.reshape(b, n, h * dh))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, dim * mult)
+        self.fc2 = nn.Linear(dim * mult, dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class GraphTransformer(nn.Module):
+    """Score network over (B, num_beads, 3) coordinates.
+
+    ``forward`` expects coordinates that are already mean-centred and returns
+    per-node energies (B, N, 1) in conservative mode (with
+    ``return_energy=True``) or predicted noise (B, N, 3) otherwise.
+    """
+
+    def __init__(
+        self,
+        num_beads: int,
+        hidden_nf: int,
+        n_layers: int = 4,
+        use_intrinsic_coords: bool = False,
+        use_abs_coords: bool = True,
+        use_distances: bool = True,
+        conservative: bool = True,
+        heads: int = 8,
+        dim_head: int = 64,
+        use_geometric_edges: bool = True,
+    ):
+        super().__init__()
+        self.num_beads = num_beads
+        self.hidden_nf = hidden_nf
+        self.n_layers = n_layers
+        self.use_intrinsic_coords = use_intrinsic_coords
+        self.use_abs_coords = use_abs_coords
+        self.use_distances = use_distances
+        self.conservative = conservative
+        self.heads = heads
+        self.dim_head = dim_head
+        self.use_geometric_edges = use_geometric_edges
+
+        node_in = num_beads + 3 * use_abs_coords + 1
+        self.node_embedding = nn.Linear(node_in, hidden_nf)
+        # Holds the edge embedding's (kernel, bias); on the geometric path it
+        # is folded into each layer's edge projection, never applied.
+        self.edge_embedding = nn.Linear(self.edge_in_dim, hidden_nf)
+        for i in range(n_layers):
+            self.add_module(f"layers_{i}_attn_norm", nn.LayerNorm(hidden_nf, eps=1e-5))
+            self.add_module(
+                f"layers_{i}_attn", Attention(hidden_nf, hidden_nf, heads, dim_head)
+            )
+            self.add_module(f"layers_{i}_attn_res", GatedResidual(hidden_nf))
+            self.add_module(f"layers_{i}_ff_norm", nn.LayerNorm(hidden_nf, eps=1e-5))
+            self.add_module(f"layers_{i}_ff", FeedForward(hidden_nf))
+            self.add_module(f"layers_{i}_ff_res", GatedResidual(hidden_nf))
+        self.node_decoder = nn.Linear(hidden_nf, 1 if conservative else 3)
+
+    @property
+    def edge_in_dim(self) -> int:
+        return (
+            3 * self.use_intrinsic_coords
+            + self.use_distances
+            + int(not self.use_intrinsic_coords and not self.use_distances)
+        )
+
+    @property
+    def is_production_edge_config(self) -> bool:
+        """The edge configuration shared by all shipped models, which the
+        fused chain-lane kernel implements."""
+        return (
+            self.conservative
+            and self.use_intrinsic_coords
+            and not self.use_abs_coords
+            and not self.use_distances
+        )
+
+    def edge_features(self, x):
+        """Edge attributes; distances are *squared*, ``diff[b,i,j] = x_j - x_i``."""
+        diff = x[:, None, :, :] - x[:, :, None, :]
+        if self.use_distances and not self.use_intrinsic_coords:
+            return torch.sum(diff**2, dim=-1, keepdim=True)
+        if self.use_intrinsic_coords and not self.use_distances:
+            return diff
+        if self.use_intrinsic_coords and self.use_distances:
+            dist = torch.sum(diff**2, dim=-1, keepdim=True)
+            return torch.cat([diff, dist], dim=-1)
+        b, n, _ = x.shape
+        return x.new_zeros((b, n, n, 1))
+
+    def forward(self, x, t, return_energy: bool = False):
+        b, n, _ = x.shape
+        if n != self.num_beads:
+            raise ValueError(f"expected {self.num_beads} beads, got {n}")
+        onehot = torch.eye(n, dtype=x.dtype, device=x.device).expand(b, n, n)
+        t_feat = t.to(x.dtype).reshape(b, 1, 1).expand(b, n, 1)
+        if self.use_abs_coords:
+            node_in = torch.cat([onehot, x, t_feat], dim=-1)
+        else:
+            node_in = torch.cat([onehot, t_feat], dim=-1)
+        nodes = self.node_embedding(node_in)
+
+        w_emb = self.edge_embedding.weight.t()  # (edge_in_dim, C)
+        b_emb = self.edge_embedding.bias
+        if self.use_geometric_edges:
+            geom = (x, w_emb, b_emb, self.use_intrinsic_coords, self.use_distances)
+            edges = None
+        else:
+            geom = None
+            edges = self.edge_features(x) @ w_emb + b_emb
+
+        for i in range(self.n_layers):
+            attn_in = getattr(self, f"layers_{i}_attn_norm")(nodes)
+            attn_out = getattr(self, f"layers_{i}_attn")(attn_in, edges=edges, geom=geom)
+            nodes = getattr(self, f"layers_{i}_attn_res")(attn_out, nodes)
+            ff_in = getattr(self, f"layers_{i}_ff_norm")(nodes)
+            ff_out = getattr(self, f"layers_{i}_ff")(ff_in)
+            nodes = getattr(self, f"layers_{i}_ff_res")(ff_out, nodes)
+
+        out = self.node_decoder(nodes)
+        if self.conservative and not return_energy:
+            raise ValueError(
+                "conservative GraphTransformer outputs energies; use score_forward "
+                "to obtain forces via autograd"
+            )
+        return out
+
+
+def score_forward(model: GraphTransformer, x: torch.Tensor, t: torch.Tensor,
+                  return_energy: bool = False) -> torch.Tensor:
+    """Model forward in "score" convention: returns (B, N, 3) noise/forces.
+
+    Centres the input and, in conservative mode, differentiates the summed
+    per-node energy with respect to the *centred* coordinates (no projection
+    afterwards), as the JAX ``score_forward`` does.
+    """
+    xc = center_zero(x)
+    if not model.conservative:
+        return model(xc, t)
+    if return_energy:
+        return model(xc, t, return_energy=True)
+    with torch.enable_grad():
+        xc = xc.detach().requires_grad_(True)
+        energy = model(xc, t, return_energy=True).sum()
+        (grad,) = torch.autograd.grad(energy, xc)
+    return -grad

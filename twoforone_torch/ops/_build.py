@@ -1,0 +1,78 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source ``ops/csrc/<name>.cu`` has a plain C interface and is
+compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so ops/csrc/<name>.cu
+
+The build directory is ``twoforone_torch/_build/`` (listed in
+``.gitignore``); a library is named by a hash of its source and flags, so an
+edited source is rebuilt on first use and an unchanged one is reused.
+Nothing is compiled when a module is imported: :func:`load` builds on first
+call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
+)
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_loaded: dict = {}
+# Compiler output of each library compiled by this process (``-Xptxas -v``
+# prints each kernel's registers, shared memory and spills).
+logs: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(_CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, compiled on first use. Raises with the
+    compiler's output if ``nvcc`` fails."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    so = library_path(name)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs[name] = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+        os.replace(tmp, so)
+    lib = _loaded[name] = ctypes.CDLL(so)
+    return lib
