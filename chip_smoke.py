@@ -2,19 +2,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path on the card: chignolin (N=10, nf=64, 3 layers,
-8 x 64 heads) with the trained chain10 EMA weights at noise level t=20, run as
-BAOA(F)B Langevin through ``LangevinDiffusion`` at 100 and 1000 chains, with
-bench.py's settings. Phases (any failure exits non-zero):
+Drives the port's paths on the card at the published widths of the staged
+models, with bench.py's settings:
 
-1. build every CUDA kernel from ``twoforone_torch/ops/csrc`` (set-up time);
-   print the card's name and power limit;
-2. hold each kernel against its plain PyTorch version on the card, at every
-   chain count of the main path (and 256), fixed t and runtime t; time both;
-3. drive the main path with the launch counters set to 0 just before and read
-   just after; check the counts, finiteness, and report steps/s;
-4. run 10 steps with the same injected noise through the kernel path and the
-   plain path and compare the coordinates.
+- chignolin (N=10, nf=64, 3 layers, 8 x 64 heads, chain10 weights, t=20):
+  BAOA(F)B Langevin through ``LangevinDiffusion(fused="auto")`` at 100 and
+  1000 chains (the fused force kernel), and i.i.d. sampling through
+  ``make_fused_sample_fn`` (DDIM-100 at batch 4096, the 1000-step ancestral
+  chain at batch 1024);
+- trp-cage (N=20, nf=128, chain20 weights, t=15): Langevin at 1000 chains
+  (the attention-core kernel pair inside an eager energy) beside the plain
+  path, and DDIM-100 sampling at batch 1024.
+
+Phases (any failure exits non-zero):
+
+1. build every CUDA kernel from ``twoforone_torch/ops/csrc`` (all ``nvcc``
+   runs started together; set-up time); print the card's name and power limit;
+2. hold each kernel against its plain PyTorch version on the card at the
+   shapes the paths give it, and time both;
+3. chignolin Langevin with the launch counters set to 0 just before and read
+   just after; counts, finiteness, steps/s;
+4. 10 chignolin steps with the same injected noise through the kernel path
+   and the plain path;
+5. trp-cage Langevin likewise (counts, steps/s on the kernel path and on the
+   plain path, 10-step comparison);
+6. i.i.d. sampling likewise (resolved kernel, counts, finiteness, centre of
+   mass, spread of the samples, samples/s, DDIM-20 against the plain path).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -26,25 +39,64 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor cores
-# and HBM3 bandwidth. The fused force kernel computes in FP32 on CUDA cores.
+# and HBM3 bandwidth. Every kernel here computes in FP32 on CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-TOL_REL = 1e-4  # kernel vs plain version, relative to the largest |eps_hat|
+TOL_REL = 1e-4  # kernel vs plain version, relative to the largest |reference|
 TOL_TRAJ_REL = 1e-4  # 10-step trajectories, relative to the largest |x|
+# DDIM-20 samples, kernel path vs plain path, in units of norm_factor (the
+# size of a typical coordinate; the largest is an outlier, a chain that ends
+# on the clip_x0 clamp at 10 x norm_factor). A reverse chain amplifies the
+# score's rounding differences where a Langevin step does not: at the top of
+# the cosine schedule x0 = (x - ..eps)/sqrt(abar_t) multiplies an eps
+# difference by ~2e4, and 19 more steps of a learned, non-contractive flow
+# follow. Two float32 implementations of the plain path on one CPU (this
+# package and the JAX one, tests/test_torch_diffusion.py) already differ by
+# ~2e-4 in the rms and ~6e-3 in the worst of 256 chains. So the rms over all
+# coordinates is held tightly and the single worst coordinate loosely.
+TOL_SAMPLE_RMS = 1e-3
+TOL_SAMPLE_MAX = 5e-2
+CLIP_X0 = 10.0  # the strided samplers' clamp on the x0 estimate, normalized units
+TOL_COM = 1e-4  # centre of mass of a sample, in units of norm_factor
 
-T_NOISE = 20
+EDGES = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
+CHIGNOLIN = dict(name="chain10", n=10, nf=64, norm=3.113133430480957, temp=340, t_noise=20)
+TRP_CAGE = dict(name="chain20", n=20, nf=128, norm=5.08211088180542, temp=290, t_noise=15)
+BBA = dict(name="chain28", n=28, nf=96, norm=6.294918537139893, temp=325, t_noise=15)
+
 CHAINS = (100, 1000)
 WARMUP_STEPS = 100
 TIMED_STEPS = 1000
+TRP_CHAINS = 1000
+TRP_TIMED_STEPS = 500
+TRP_PLAIN_STEPS = 100
+HEADS, DH = 8, 64
+# Batch sizes of the sampling runs of phase 6. Every chain count a path gives
+# a kernel is also a shape of that kernel's check in phase 2.
+DDIM_BATCH = 4096
+ANCESTRAL_BATCH = 1024
+TRP_DDIM_BATCH = 1024
+AGREE_BATCH = 256  # the 10-step and DDIM-20 comparisons of kernel and plain path
+K1_CHAINS = sorted({AGREE_BATCH, *CHAINS, ANCESTRAL_BATCH, DDIM_BATCH})
+K1_TIMED_CHAINS = (*CHAINS, DDIM_BATCH)
+# (N, B) of the attention-core checks: trp-cage at every chain count of its
+# paths, BBA, and a ragged case.
+CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATCH})),
+               (28, 256), (11, 3))
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def fail(msg):
+    raise SystemExit(msg)
 
 
 def cuda_time_ms(fn, reps):
@@ -59,6 +111,12 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound(flops, nbytes):
+    """Least time the card could take, in ms, and which of the two sets it."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def fused_force_flops(fw, chains):
     """Operations of one fused force call: every product of the forward and
     of the input-gradient backward (elementwise work is a few % and left
@@ -68,6 +126,79 @@ def fused_force_flops(fw, chains):
     return chains * fw.n_layers * per_layer
 
 
+def core_work(b, n, h, dh):
+    """(flops, bytes) of the attention core's forward and backward: each
+    input read once, each output written once (x is shared by the heads)."""
+    fwd = (b * h * (4 * n * n * dh + 12 * n * n),
+           4 * (b * h * (4 * n * dh + 7 * n) + b * 3 * n))
+    bwd = (b * h * (10 * n * n * dh + 30 * n * n),
+           4 * (b * h * (7 * n * dh + 14 * n) + b * 3 * n))
+    return fwd, bwd
+
+
+def make_gd(spec):
+    from twoforone_torch.core.diffusion import GaussianDiffusion
+    from twoforone_torch.models.graph_transformer import GraphTransformer
+
+    model = GraphTransformer(spec["n"], spec["nf"], 3, **EDGES)
+    return GaussianDiffusion(model=model, num_atoms=spec["n"], timesteps=1000,
+                             norm_factor=spec["norm"], loss_weights="higheruntil_100")
+
+
+def normal(seed, shape, dev):
+    return torch.from_numpy(
+        np.random.default_rng(seed).normal(size=shape).astype(np.float32)).to(dev)
+
+
+def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev):
+    """bench.py's Langevin settings (dt 2e-3 ps, masses 12, friction 1,
+    restraint_k 50, max_force 1e3) from a seeded random start."""
+    from twoforone_torch.dynamics.langevin import LangevinDiffusion
+
+    rng = np.random.default_rng(0)
+    init = rng.normal(size=(chains, spec["n"], 3)).astype(np.float32)
+    init = (init - init.mean(axis=1, keepdims=True)) * gd.norm_factor
+    return LangevinDiffusion(
+        gd, params, init, n_timesteps=n_timesteps, save_interval=save_interval,
+        t=spec["t_noise"], temp_data=spec["temp"], temp_sim=spec["temp"], dt=2e-3,
+        masses=[12.0] * spec["n"], friction=1.0, kb="consistent", random_seed=0,
+        steps_per_chunk=1000, log=False, fused=fused, restraint_k=50.0, max_force=1e3,
+        device=dev,
+    )
+
+
+def timed_run(ld, warmup, steps):
+    """steps/s of ``steps`` Langevin steps after ``warmup`` steps; also
+    whether every coordinate stayed finite."""
+    ld.sim.simulate(sub_interval=warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = ld.sim.simulate(sub_interval=steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    finite = bool(np.isfinite(traj).all()) and bool(torch.isfinite(ld.sim._state[0]).all())
+    return steps / elapsed, finite
+
+
+def ten_steps_agree(phase, gd, params, spec, chains, kernel_mode, dev):
+    """Ten steps with the same injected noise through the kernel path and
+    the plain path."""
+    noise = normal(9, (10, chains, spec["n"], 3), dev)
+    finals = {}
+    for fused in (kernel_mode, "never"):
+        ld = make_sim(gd, params, spec, chains, fused, 10, 10, dev)
+        draws = iter(noise)
+        ld.sim._draw_noise = lambda like, draws=draws: next(draws)
+        finals[fused] = ld.sample()
+    diff = float(np.abs(finals[kernel_mode] - finals["never"]).max())
+    scale = float(np.abs(finals["never"]).max())
+    ok = bool(np.isfinite(finals[kernel_mode]).all()) and diff <= TOL_TRAJ_REL * scale
+    log(f"{phase} 10-step {kernel_mode} vs plain max_coord_diff={diff:.3e} "
+        f"max_coord={scale:.3f} tol_rel={TOL_TRAJ_REL} ok={ok}")
+    if not ok:
+        fail(f"{phase}: kernel path and plain path trajectories disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -75,16 +206,25 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from twoforone_torch.core.diffusion import GaussianDiffusion
-    from twoforone_torch.dynamics.langevin import LangevinDiffusion
-    from twoforone_torch.models.graph_transformer import GraphTransformer
     from twoforone_torch.ops import _build
+    from twoforone_torch.ops import attention_cl_core as acc
     from twoforone_torch.ops import fused_score_cl as fcl
+    from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
     from twoforone_torch.utils.artifacts import load_ema_params
+
+    def reset_counts():
+        fcl.fused_force_cl.launches = 0
+        acc.cl_attention_core.launches_fwd = acc.cl_attention_core.launches_bwd = 0
+
+    def counts():
+        return (fcl.fused_force_cl.launches, acc.cl_attention_core.launches_fwd,
+                acc.cl_attention_core.launches_bwd)
 
     # ---------------------------------------------------------- phase 1
     t0 = time.perf_counter()
-    _build.load("fused_score_cl")
+    libraries = ("fused_score_cl", "attention_cl_core")
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        list(pool.map(_build.load, libraries))
     log(f"phase1 build_s={time.perf_counter() - t0:.2f} built={sorted(_build.logs)}")
     for name, text in _build.logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
@@ -94,121 +234,282 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(f"gpu: {smi}")
 
-    model = GraphTransformer(10, 64, 3, use_intrinsic_coords=True,
-                             use_abs_coords=False, use_distances=False)
-    gd = GaussianDiffusion(model=model, num_atoms=10, timesteps=1000,
-                           norm_factor=3.113133430480957, loss_weights="higheruntil_100")
-    params = load_ema_params("chain10")
     dev = torch.device("cuda")
-    fw = fcl.augment_params_cl(model, params, dev)
+    gd = make_gd(CHIGNOLIN)
+    params = load_ema_params(CHIGNOLIN["name"])
+    fw = fcl.augment_params_cl(gd.model, params, dev)
+    gd_trp = make_gd(TRP_CAGE)
+    params_trp = load_ema_params(TRP_CAGE["name"])
 
     # ---------------------------------------------------------- phase 2
-    max_abs = 0.0
-    for chains in (256, *CHAINS):
-        x = torch.from_numpy(
-            np.random.default_rng(chains).normal(size=(chains, 10, 3)).astype(np.float32)
-        ).to(dev)
-        for label, t in (("fixed", T_NOISE / 1000), ("runtime", 0.37)):
+    # K1, the fused force kernel, at every chain count of its paths.
+    k1_err = 0.0
+    for chains in K1_CHAINS:
+        x = normal(chains, (chains, 10, 3), dev)
+        for label, t in (("fixed", CHIGNOLIN["t_noise"] / 1000), ("runtime", 0.37)):
             out = fcl.fused_force_cl(x, t, fw)
             torch.cuda.synchronize()
             ref = fcl.fused_force_cl_reference(x, t, fw)
             err = (out - ref).abs().max().item()
             scale = ref.abs().max().item()
             ok = bool(torch.isfinite(out).all()) and err <= TOL_REL * scale
-            log(f"phase2 chains={chains} t={label}:{t} max_abs_err={err:.3e} "
+            log(f"phase2 fused_force_cl chains={chains} t={label}:{t} max_abs_err={err:.3e} "
                 f"max_rel_err={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
             if not ok:
-                raise SystemExit("phase2: kernel disagrees with its plain version")
-            max_abs = max(max_abs, err)
+                fail("phase2: fused_force_cl disagrees with its plain version")
+            k1_err = max(k1_err, err)
 
     timing = {}
-    for chains in CHAINS:
-        x = torch.from_numpy(
-            np.random.default_rng(7).normal(size=(chains, 10, 3)).astype(np.float32)
-        ).to(dev)
-        t = T_NOISE / 1000
+    for chains in K1_TIMED_CHAINS:
+        x = normal(7, (chains, 10, 3), dev)
+        t = CHIGNOLIN["t_noise"] / 1000
         ms = cuda_time_ms(lambda: fcl.fused_force_cl(x, t, fw), 50)
         plain_ms = cuda_time_ms(lambda: fcl.fused_force_cl_reference(x, t, fw), 10)
         flops = fused_force_flops(fw, chains)
-        nbytes = 4 * (2 * x.numel() + fw.flat.numel())
-        bound_s = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
-        timing[chains] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                              bound_by="operations" if flops / PEAK_FP32_FLOPS
-                              >= nbytes / PEAK_BYTES_PER_S else "bytes", flops=flops)
-        log(f"phase2 timing chains={chains} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_s * 1e3:.4f} gflop={flops / 1e9:.3f} "
+        bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + fw.flat.numel()))
+        timing[chains] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              flops=flops)
+        log(f"phase2 timing fused_force_cl chains={chains} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} gflop={flops / 1e9:.3f} "
             f"achieved_tflops={flops / ms / 1e9:.3f}")
 
-    # ---------------------------------------------------------- phase 3
-    def make_sim(chains, fused, n_timesteps, save_interval):
-        rng = np.random.default_rng(0)
-        init = rng.normal(size=(chains, 10, 3)).astype(np.float32)
-        init = (init - init.mean(axis=1, keepdims=True)) * gd.norm_factor
-        return LangevinDiffusion(
-            gd, params, init, n_timesteps=n_timesteps, save_interval=save_interval,
-            t=T_NOISE, temp_data=340, temp_sim=340, dt=2e-3, masses=[12.0] * 10,
-            friction=1.0, kb="consistent", random_seed=0, steps_per_chunk=TIMED_STEPS,
-            log=False, fused=fused, restraint_k=50.0, max_force=1e3, device=dev,
-        )
+    # K2 and K3, the attention core's forward and backward.
+    core_err = {"fwd": 0.0, "bwd": 0.0}
+    for n, b in CORE_SHAPES:
+        seed = 100 * n + b
+        q, k, v = (normal(seed + i, (b, n, HEADS, DH), dev) for i in range(3))
+        x = normal(seed + 3, (b, n, 3), dev)
+        qb = normal(seed + 4, (b, HEADS, n), dev)
+        qkd = 0.3 * normal(seed + 5, (b, HEADS, n, 3), dev)
+        dout = normal(seed + 6, (b, n, HEADS, DH), dev)
+        dfd = normal(seed + 7, (b, HEADS, n, 3), dev)
+        ins = (q, k, v, x, qb, qkd)
+        got = {"fwd": acc.cl_attention_fwd(*ins), "bwd": acc.cl_attention_bwd(*ins, dout, dfd)}
+        again = {"fwd": acc.cl_attention_fwd(*ins), "bwd": acc.cl_attention_bwd(*ins, dout, dfd)}
+        torch.cuda.synchronize()
+        ref = {"fwd": acc.cl_attention_reference(*ins),
+               "bwd": acc.cl_attention_bwd_reference(*ins, dout, dfd)}
+        for which in ("fwd", "bwd"):
+            same_bits = all(torch.equal(a, c) for a, c in zip(got[which], again[which]))
+            errs = [(a - r).abs().max().item() for a, r in zip(got[which], ref[which])]
+            scales = [r.abs().max().item() for r in ref[which]]
+            if which == "bwd":
+                # dqb_i = sum_j dsim_ij is zero in exact arithmetic (a softmax
+                # row sums to 1), so both sides hold rounding noise: its error
+                # is held against dqkd's scale, a sum of the same terms
+                # weighted by O(1) coordinate differences.
+                scales[4] = scales[5]
+            rels = [e / sc for e, sc in zip(errs, scales)]
+            ok = (same_bits and all(bool(torch.isfinite(a).all()) for a in got[which])
+                  and max(rels) <= TOL_REL)
+            log(f"phase2 cl_attention_{which} N={n} B={b} max_abs_err={max(errs):.3e} "
+                f"max_rel_err={max(rels):.3e} tol_rel={TOL_REL} same_bits={same_bits} ok={ok}")
+            if not ok:
+                fail(f"phase2: cl_attention_{which} disagrees with its plain version "
+                     "or does not repeat bit for bit")
+            core_err[which] = max(core_err[which], max(errs))
 
+    # The whole clx force evaluation against the same energy with the plain core.
+    for spec in (TRP_CAGE, BBA):
+        model = make_gd(spec).model
+        weights = load_ema_params(spec["name"])
+        x = normal(spec["n"], (256, spec["n"], 3), dev)
+        t_fixed = spec["t_noise"] / 1000
+        fixed = make_clx_force_fn(model, weights, t_fixed, dev)
+        runtime = make_clx_force_fn(model, weights, None, dev)
+        cases = (("fixed", t_fixed, fixed(x)),
+                 ("runtime", 0.37, runtime(x, torch.tensor(0.37, device=dev))))
+        for label, t, out in cases:
+            ref = fcl.fused_force_cl_reference(x, t, fixed.folded)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and err <= TOL_REL * scale
+            log(f"phase2 clx_force {spec['name']} t={label}:{t} max_abs_err={err:.3e} "
+                f"max_rel_err={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
+            if not ok:
+                fail("phase2: the clx force path disagrees with its plain version")
+
+    n, b = TRP_CAGE["n"], TRP_CHAINS
+    q, k, v, dout = (normal(40 + i, (b, n, HEADS, DH), dev) for i in range(4))
+    x, qb = normal(44, (b, n, 3), dev), normal(45, (b, HEADS, n), dev)
+    qkd, dfd = (0.3 * normal(46 + i, (b, HEADS, n, 3), dev) for i in range(2))
+    ins = (q, k, v, x, qb, qkd)
+    work = dict(zip(("fwd", "bwd"), core_work(b, n, HEADS, DH)))
+    core_timing = {
+        "fwd": dict(ms=cuda_time_ms(lambda: acc.cl_attention_fwd(*ins), 50),
+                    plain_ms=cuda_time_ms(lambda: acc.cl_attention_reference(*ins), 10)),
+        "bwd": dict(ms=cuda_time_ms(lambda: acc.cl_attention_bwd(*ins, dout, dfd), 50),
+                    plain_ms=cuda_time_ms(
+                        lambda: acc.cl_attention_bwd_reference(*ins, dout, dfd), 10)),
+    }
+    for which, tm in core_timing.items():
+        flops, nbytes = work[which]
+        tm["bound_ms"], tm["bound_by"] = bound(flops, nbytes)
+        log(f"phase2 timing cl_attention_{which} N={n} B={b} kernel_ms={tm['ms']:.4f} "
+            f"plain_ms={tm['plain_ms']:.4f} bound_ms={tm['bound_ms']:.4f} "
+            f"bound_by={tm['bound_by']} gflop={flops / 1e9:.3f} mbytes={nbytes / 1e6:.1f} "
+            f"achieved_gb_per_s={nbytes / tm['ms'] / 1e6:.1f}")
+
+    launches = {"k1": 0, "fwd": 0, "bwd": 0}
+
+    def add_counts():
+        k1, fwd, bwd = counts()
+        launches["k1"] += k1
+        launches["fwd"] += fwd
+        launches["bwd"] += bwd
+        return k1, fwd, bwd
+
+    # ---------------------------------------------------------- phase 3
     sps = {}
-    main_launches = 0
     for chains in CHAINS:
-        ld = make_sim(chains, "auto", 10_000_000, WARMUP_STEPS)
+        ld = make_sim(gd, params, CHIGNOLIN, chains, "auto", 10_000_000, WARMUP_STEPS, dev)
         if ld.force_fn.mode != "cl":
-            raise SystemExit(f"phase3: fused='auto' resolved to {ld.force_fn.mode!r}")
-        fcl.fused_force_cl.launches = 0
-        ld.sim.simulate(sub_interval=WARMUP_STEPS)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        traj = ld.sim.simulate(sub_interval=TIMED_STEPS)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = fcl.fused_force_cl.launches
-        main_launches += launches
-        sps[chains] = TIMED_STEPS / elapsed
-        finite = bool(np.isfinite(traj).all()) and bool(
-            torch.isfinite(ld.sim._state[0]).all()
-        )
-        log(f"phase3 chains={chains} steps_per_s={sps[chains]:.2f} "
-            f"launches={launches} steps={WARMUP_STEPS + TIMED_STEPS} finite={finite}")
-        if launches != WARMUP_STEPS + TIMED_STEPS or not finite:
-            raise SystemExit("phase3: kernel launches != steps, or non-finite coordinates")
+            fail(f"phase3: fused='auto' resolved to {ld.force_fn.mode!r}")
+        reset_counts()
+        sps[chains], finite = timed_run(ld, WARMUP_STEPS, TIMED_STEPS)
+        k1, fwd, bwd = add_counts()
+        log(f"phase3 chignolin chains={chains} steps_per_s={sps[chains]:.2f} "
+            f"launches={k1} steps={WARMUP_STEPS + TIMED_STEPS} finite={finite}")
+        if k1 != WARMUP_STEPS + TIMED_STEPS or fwd or bwd or not finite:
+            fail("phase3: kernel launches != steps, or non-finite coordinates")
 
     # ---------------------------------------------------------- phase 4
-    noise = torch.from_numpy(
-        np.random.default_rng(9).normal(size=(10, 100, 10, 3)).astype(np.float32)
-    ).to(dev)
-    finals = {}
-    for fused in ("cl", "never"):
-        ld = make_sim(100, fused, 10, 10)
-        draws = iter(noise)
-        ld.sim._draw_noise = lambda like, draws=draws: next(draws)
-        finals[fused] = ld.sample()
-    diff = float(np.abs(finals["cl"] - finals["never"]).max())
-    scale = float(np.abs(finals["never"]).max())
-    ok = bool(np.isfinite(finals["cl"]).all()) and diff <= TOL_TRAJ_REL * scale
-    log(f"phase4 10-step kernel vs plain max_coord_diff={diff:.3e} "
-        f"max_coord={scale:.3f} tol_rel={TOL_TRAJ_REL} ok={ok}")
-    if not ok:
-        raise SystemExit("phase4: kernel path and plain path trajectories disagree")
+    ten_steps_agree("phase4 chignolin", gd, params, CHIGNOLIN, 100, "cl", dev)
 
-    log("steps_per_s " + json.dumps({f"chains_{c}": sps[c] for c in CHAINS}))
+    # ---------------------------------------------------------- phase 5
+    ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "auto", 10_000_000,
+                  WARMUP_STEPS, dev)
+    if ld.force_fn.mode != "clx":
+        fail(f"phase5: fused='auto' resolved to {ld.force_fn.mode!r}")
+    reset_counts()
+    trp_sps, finite = timed_run(ld, WARMUP_STEPS, TRP_TIMED_STEPS)
+    k1, fwd, bwd = add_counts()
+    steps = WARMUP_STEPS + TRP_TIMED_STEPS
+    log(f"phase5 trp_cage chains={TRP_CHAINS} mode=clx steps_per_s={trp_sps:.2f} "
+        f"launches_fwd={fwd} launches_bwd={bwd} steps={steps} finite={finite}")
+    if fwd != 3 * steps or bwd != 3 * steps or k1 or not finite:
+        fail("phase5: attention-core launches != 3 x steps, or non-finite coordinates")
+    ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "never", 10_000_000, 20, dev)
+    reset_counts()
+    trp_plain_sps, finite = timed_run(ld, 20, TRP_PLAIN_STEPS)
+    if any(counts()) or not finite:
+        fail("phase5: the plain path launched a kernel, or non-finite coordinates")
+    step_ms = 1e3 / trp_sps
+    core_ms = 3 * (core_timing["fwd"]["ms"] + core_timing["bwd"]["ms"])
+    log("trp_cage_step " + json.dumps({
+        "chains": TRP_CHAINS, "steps_per_s_clx": trp_sps, "steps_per_s_never": trp_plain_sps,
+        "clx_over_never": trp_sps / trp_plain_sps, "step_ms_clx": step_ms,
+        "attention_core_ms_per_step": core_ms, "attention_core_share": core_ms / step_ms,
+        "rest_of_step_ms": step_ms - core_ms,
+    }))
+    ten_steps_agree("phase5 trp_cage", gd_trp, params_trp, TRP_CAGE, AGREE_BATCH, "clx", dev)
+
+    # ---------------------------------------------------------- phase 6
+    samples_per_s = {}
+    runs = (  # label, diffusion, weights, spec, batch, sample_steps, kernel, launches per call
+        (f"chignolin_ddim100_b{DDIM_BATCH}", gd, params, CHIGNOLIN, DDIM_BATCH, 100, "cl",
+         (1, 0, 0)),
+        (f"chignolin_ancestral1000_b{ANCESTRAL_BATCH}", gd, params, CHIGNOLIN, ANCESTRAL_BATCH,
+         None, "cl", (1, 0, 0)),
+        (f"trp_cage_ddim100_b{TRP_DDIM_BATCH}", gd_trp, params_trp, TRP_CAGE, TRP_DDIM_BATCH,
+         100, "clx", (0, 3, 3)),
+    )
+    for label, g, weights, spec, batch, sample_steps, kernel, per_call in runs:
+        g.make_fused_sample_fn(weights, batch, sample_steps=3, device=dev)(
+            torch.Generator(device=dev).manual_seed(0))  # warm-up
+        fn = g.make_fused_sample_fn(weights, batch, kernel="auto", sample_steps=sample_steps,
+                                    device=dev)
+        if fn.kernel != kernel:
+            fail(f"phase6 {label}: kernel='auto' resolved to {fn.kernel!r}")
+        calls = sample_steps or g.timesteps
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = add_counts()
+        samples_per_s[label] = batch / elapsed
+        finite = bool(torch.isfinite(out).all())
+        com = (out.mean(dim=1).abs().max() / spec["norm"]).item()
+        std_ratio = (out.std() / spec["norm"]).item()
+        ok = (finite and got == tuple(c * calls for c in per_call) and com <= TOL_COM
+              and 0.5 <= std_ratio <= 2.0 and tuple(out.shape) == (batch, spec["n"], 3))
+        log(f"phase6 {label} kernel={fn.kernel} samples_per_s={samples_per_s[label]:.2f} "
+            f"seconds={elapsed:.3f} score_calls={calls} launches_k1_fwd_bwd={got} "
+            f"finite={finite} max_com_over_norm={com:.2e} std_over_norm={std_ratio:.3f} ok={ok}")
+        if not ok:
+            fail(f"phase6 {label}: wrong launch count, shape, centre of mass or spread")
+
+    for label, g, weights, spec, kernel in (("chignolin", gd, params, CHIGNOLIN, "cl"),
+                                            ("trp_cage", gd_trp, params_trp, TRP_CAGE, "clx")):
+        table = {}
+
+        def hook(tag, shape, table=table):
+            if tag not in table:
+                seed = 10_000 if tag == "init" else tag
+                table[tag] = normal(seed, shape, dev)
+            return table[tag]
+
+        outs = {kern: g.make_fused_sample_fn(weights, AGREE_BATCH, kernel=kern,
+                                             sample_steps=20, device=dev)(noise=hook)
+                for kern in (kernel, "xla")}
+        norm = spec["norm"]
+        delta = (outs[kernel] - outs["xla"]) / norm
+        diff, rms = delta.abs().max().item(), delta.square().mean().sqrt().item()
+        per_chain = delta.abs().amax(dim=(1, 2))
+        # Chains of the plain path that end on the x0 clamp (|x| = 10 normalized).
+        clipped = int((outs["xla"].abs().amax(dim=(1, 2)) >= 0.99 * CLIP_X0 * norm).sum())
+        ok = (bool(torch.isfinite(outs[kernel]).all()) and rms <= TOL_SAMPLE_RMS
+              and diff <= TOL_SAMPLE_MAX)
+        log(f"phase6 {label} DDIM-20 {kernel} vs plain, in units of norm_factor: "
+            f"rms_diff={rms:.3e} tol_rms={TOL_SAMPLE_RMS} max_diff={diff:.3e} "
+            f"tol_max={TOL_SAMPLE_MAX} median_chain_diff={per_chain.median().item():.3e} "
+            f"worst_chain={int(per_chain.argmax())} "
+            f"max_coord={outs['xla'].abs().max().item() / norm:.3f} "
+            f"chains_on_x0_clip={clipped} ok={ok}")
+        if not ok:
+            fail(f"phase6 {label}: kernel path and plain path samples disagree")
+
+    log("steps_per_s " + json.dumps({
+        **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
+        f"trp_cage_chains_{TRP_CHAINS}_clx": trp_sps,
+        f"trp_cage_chains_{TRP_CHAINS}_never": trp_plain_sps,
+    }))
+    log("samples_per_s " + json.dumps(samples_per_s))
     log("kernel_100_chains " + json.dumps(timing[100]))
-    main = timing[1000]
-    log(json.dumps({"kernels": [{
+    log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
+    main_k1 = timing[1000]
+    kernels = [{
         "name": "fused_force_cl",
         "route": "cuda",
         "source": "twoforone_torch/ops/csrc/fused_score_cl.cu",
         "replaces": "twoforone_tpu/ops/fused_score_cl.py:309",
-        "launches": main_launches,
-        "max_abs_err": max_abs,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
+        "launches": launches["k1"],
+        "max_abs_err": k1_err,
+        "ms": main_k1["ms"],
+        "plain_ms": main_k1["plain_ms"],
+        "bound_ms": main_k1["bound_ms"],
+        "bound_by": main_k1["bound_by"],
         "library_ms": None,
-    }]}))
+    }]
+    for which, line in (("fwd", 175), ("bwd", 199)):
+        tm = core_timing[which]
+        kernels.append({
+            "name": f"cl_attention_{which}",
+            "route": "cuda",
+            "source": "twoforone_torch/ops/csrc/attention_cl_core.cu",
+            "replaces": f"twoforone_tpu/ops/attention_cl_core.py:{line}",
+            "launches": launches[which],
+            "max_abs_err": core_err[which],
+            "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"],
+            "library_ms": None,
+        })
+    log(json.dumps({"kernels": kernels}))
     log(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

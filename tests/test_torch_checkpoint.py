@@ -94,6 +94,7 @@ def _imported_modules(path):
 def test_port_imports_no_jax_flax_or_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    files.append(os.path.join(REPO, "scripts", "torch_profile_langevin.py"))
     assert len(files) > 15
     banned = ("jax", "flax", "twoforone_tpu", "optax")
     for path in files:
@@ -107,6 +108,7 @@ def _entry_points():
     from twoforone_torch.dynamics.langevin import LangevinDiffusion, make_diffusion_force_fn
     from twoforone_torch.models.graph_transformer import GraphTransformer
     from twoforone_torch.ops.fused_score_cl import augment_params_cl
+    from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
 
     model = GraphTransformer(5, 8, 1, use_intrinsic_coords=True,
                              use_abs_coords=False, use_distances=False,
@@ -127,6 +129,13 @@ def _entry_points():
         "LangevinSimulation": lambda **kw: LangevinSimulation(
             force_fn=force_fn, initial_coordinates=init, length=10, save_interval=5, **kw),
         "augment_params_cl": lambda **kw: augment_params_cl(model, params, **kw),
+        "make_clx_force_fn": lambda **kw: make_clx_force_fn(model, params, 0.1, **kw),
+        "GaussianDiffusion.sample": lambda **kw: gd.sample(
+            params, 2, torch.Generator().manual_seed(0), sample_steps=2, **kw),
+        "GaussianDiffusion.make_fused_sample_fn": lambda **kw: gd.make_fused_sample_fn(
+            params, 2, sample_steps=2, **kw),
+        "GaussianDiffusion.loss": lambda **kw: gd.loss(
+            params, init, torch.Generator().manual_seed(0), **kw),
     }
 
 
@@ -151,7 +160,10 @@ def _model_params(model):
 
 
 @pytest.mark.parametrize("name", ["LangevinDiffusion", "make_diffusion_force_fn",
-                                  "LangevinSimulation", "augment_params_cl"])
+                                  "LangevinSimulation", "augment_params_cl",
+                                  "make_clx_force_fn", "GaussianDiffusion.sample",
+                                  "GaussianDiffusion.make_fused_sample_fn",
+                                  "GaussianDiffusion.loss"])
 def test_entry_points_need_cuda_unless_cpu(name, monkeypatch):
     """Default device is CUDA: without it an entry point raises; with
     device="cpu" it runs on the host."""

@@ -18,7 +18,11 @@ from twoforone_tpu.dynamics.langevin import make_diffusion_force_fn as jforce
 from twoforone_tpu.ops.geometry import center_zero as jcenter
 from twoforone_torch.core.diffusion import GaussianDiffusion
 from twoforone_torch.dynamics import integrators as tint
-from twoforone_torch.dynamics.langevin import LangevinDiffusion
+from twoforone_torch.dynamics.langevin import (
+    LangevinDiffusion,
+    make_diffusion_force_fn,
+    resolve_fused_mode,
+)
 from twoforone_torch.models.graph_transformer import GraphTransformer
 from twoforone_torch.utils.artifacts import load_ema_params
 
@@ -130,6 +134,96 @@ def test_driver_units_auto_dt_and_force_scale_match_jax(kb):
     _, tf = td.force_fn(torch.from_numpy(x))
     jf = np.asarray(jf)
     np.testing.assert_allclose(tf.numpy(), jf, atol=2e-5 * np.abs(jf).max(), rtol=0)
+
+
+EDGES = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
+
+
+@pytest.mark.parametrize("n_beads,n_chains,device,expected", [
+    (10, 100, "cuda", "cl"),
+    (20, 1024, "cuda", "clx"),
+    (20, 256, "cuda", "clx"),
+    (20, 100, "cuda", "never"),  # below the gate's chain count
+    (20, None, "cuda", "never"),
+    (56, 1024, "cuda", "never"),  # above CLX_MAX_N
+    (10, 100, "cpu", "never"),
+    (20, 1024, "cpu", "never"),
+])
+def test_auto_gate_matches_jax_package(n_beads, n_chains, device, expected):
+    """The table of tests/test_fused_score.py's gate test, for the port's
+    ``resolve_fused_mode`` (the device is given as a string: no card
+    needed), and the same answers from the JAX package's own gate."""
+    from twoforone_tpu.dynamics.langevin import resolve_fused_mode as jresolve
+    from twoforone_tpu.models.graph_transformer import GraphTransformer as JGT
+
+    model = GraphTransformer(n_beads, 8, 1, heads=2, dim_head=4, **EDGES)
+    assert resolve_fused_mode(model, "auto", n_chains, device) == expected
+    backend = "tpu" if device == "cuda" else "cpu"  # "any accelerator" on the JAX side
+    jmodel = JGT(num_beads=n_beads, hidden_nf=8, n_layers=1, **EDGES)
+    assert jresolve(jmodel, "auto", n_chains, backend) == expected
+
+
+def test_gate_passes_explicit_modes_and_rejects_other_edge_configs():
+    model = GraphTransformer(20, 8, 1, heads=2, dim_head=4, **EDGES)
+    for mode in ("cl", "clx", "never", "always"):
+        assert resolve_fused_mode(model, mode, 8, "cpu") == mode
+    other = GraphTransformer(20, 8, 1, heads=2, dim_head=4, use_intrinsic_coords=True,
+                             use_abs_coords=True, use_distances=False)
+    assert resolve_fused_mode(other, "auto", 1024, "cuda") == "never"
+
+
+@pytest.mark.parametrize("fused,error", [("always", NotImplementedError), ("mosaic", ValueError)])
+def test_unported_and_unknown_force_paths_raise(fused, error):
+    """fused="always" is the head-packed kernel K4, not ported yet: it raises
+    and names K4 rather than falling through to another path."""
+    gd, params = _port_chain10()
+    with pytest.raises(error, match="K4" if fused == "always" else "unknown fused mode"):
+        make_diffusion_force_fn(gd, params, 20, 1.0, fused=fused, device="cpu")
+
+
+def test_ten_langevin_steps_trp_cage_clx_match_jax_loop():
+    """bench.py's trp-cage settings (chain20 weights, t=15, 290 K), 8 chains,
+    10 BAOAB steps with the same injected noise: the port's clx path (on the
+    CPU its attention core is the plain version) against the JAX package's
+    plain path, which is what the JAX gate gives on the CPU. 1e-4 of the
+    largest coordinate, as for chignolin."""
+    from twoforone_tpu.core.diffusion import GaussianDiffusion as JGD
+    from twoforone_tpu.models.graph_transformer import GraphTransformer as JGT
+    from twoforone_tpu.utils.artifacts import load_ema_params as jload
+
+    n, norm = 20, 5.08211088180542
+    kw = dict(t=15, temp_data=290, temp_sim=290, dt=2e-3, masses=[12.0] * n, friction=1.0,
+              kb="consistent", restraint_k=50.0, max_force=1e3)
+    jgd = JGD(model=JGT(num_beads=n, hidden_nf=128, n_layers=3, conservative=True, **EDGES),
+              num_atoms=n, timesteps=1000, norm_factor=norm, loss_weights="higheruntil_100")
+    jparams = jload(jgd, "chain20")
+    gd = GaussianDiffusion(model=GraphTransformer(n, 128, 3, **EDGES), num_atoms=n,
+                           timesteps=1000, norm_factor=norm, loss_weights="higheruntil_100")
+    rng = np.random.default_rng(6)
+    init = rng.normal(size=(8, n, 3)).astype(np.float32)
+    init = (init - init.mean(axis=1, keepdims=True)) * norm
+    noise = rng.normal(size=(10, 8, n, 3)).astype(np.float32)
+
+    jd = JLD(jgd, jparams, init, n_timesteps=10, save_interval=10, log=False, **kw)
+    sim = jd.sim
+    x, v = jnp.asarray(init / jd.norm_factor), jnp.zeros((8, n, 3))
+    force_fn = jax.jit(jforce(jgd, jparams, 15, jd.kb_inv / 290, fused="never"))
+    for k in range(10):
+        x = jcenter(x)
+        _, forces = force_fn(x)
+        forces = jnp.clip(forces, -1e3, 1e3) - 50.0 * x
+        x, v = jint.baoab_step(x, v, forces, jnp.asarray(noise[k]), sim.dt, sim._masses,
+                               sim.vscale, sim.noisescale, sim.beta)
+    ref = np.asarray(x) * jd.norm_factor
+
+    td = LangevinDiffusion(gd, load_ema_params("chain20"), init, n_timesteps=10,
+                           save_interval=10, log=False, fused="clx", device="cpu", **kw)
+    assert td.force_fn.mode == "clx"
+    draws = iter(torch.from_numpy(noise))
+    td.sim._draw_noise = lambda like: next(draws)
+    out = td.sample()
+    assert out.shape == (8, n, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
 
 
 def _harmonic(x):

@@ -51,6 +51,11 @@ class DiffusionBuffers(NamedTuple):
     def num_timesteps(self) -> int:
         return self.betas.shape[0]
 
+    def to(self, device) -> "DiffusionBuffers":
+        """The buffers on ``device``; a sampling loop moves them once instead
+        of at every :func:`extract`."""
+        return DiffusionBuffers(*(b.to(device) for b in self))
+
 
 def make_loss_weights(name: str, betas: np.ndarray) -> np.ndarray:
     """Timestep-importance weights (``ones``, ``score_matching``,

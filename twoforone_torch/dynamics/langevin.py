@@ -8,10 +8,12 @@
   the norm-factor algebra and auto-dt, and runs BAOA(F)B.
 
 Force paths (``fused``): ``"cl"`` is the fused CUDA force kernel
-(:mod:`twoforone_torch.ops.fused_score_cl`), ``"never"`` the plain
-``GraphTransformer`` with autograd, and ``"auto"`` picks ``"cl"`` whenever the
-model has the production edge configuration, at most
-``VERIFIED_MAX_N`` beads, and the device is CUDA.
+(:mod:`twoforone_torch.ops.fused_score_cl`), ``"clx"`` the attention-core
+kernel pair inside an eager energy (:mod:`twoforone_torch.ops.fused_score_clx`),
+``"never"`` the plain ``GraphTransformer`` with autograd, and ``"auto"`` picks
+by the JAX package's gate (:func:`resolve_fused_mode`). ``"always"`` (the
+head-packed kernel K4 of ``twoforone_tpu/ops/fused_score.py``) is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -26,27 +28,29 @@ from twoforone_torch.dynamics.integrators import LangevinSimulation
 from twoforone_torch.utils.device import resolve_device
 
 
-def resolve_fused_mode(model, fused: str, device) -> str:
-    """Resolve ``fused="auto"`` to ``"cl"`` or ``"never"``; explicit values
-    pass through untouched."""
+def resolve_fused_mode(model, fused: str, n_chains, device) -> str:
+    """Resolve ``fused="auto"`` to ``"cl"``, ``"clx"`` or ``"never"`` by the
+    shared gate (:func:`twoforone_torch.ops.fused_score_clx.auto_fused_path`);
+    explicit values pass through untouched."""
     if fused != "auto":
         return fused
-    from twoforone_torch.ops.fused_score_cl import VERIFIED_MAX_N
+    from twoforone_torch.ops.fused_score_clx import auto_fused_path
 
-    if (torch.device(device).type == "cuda" and model.is_production_edge_config
-            and model.num_beads <= VERIFIED_MAX_N):
-        return "cl"
-    return "never"
+    path = auto_fused_path(model, n_chains, device)
+    return "never" if path == "plain" else path
 
 
 def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
-                            fused: str = "never", device="cuda"):
+                            fused: str = "never", n_chains: Optional[int] = None,
+                            device="cuda"):
     """Build ``x -> (potential, forces)`` from a diffusion model at noise level t.
 
     ``params`` is the flax parameter tree (nested dict of numpy arrays, see
     :func:`twoforone_torch.utils.artifacts.load_ema_params`). ``x`` is in
     *normalized* units (divided by norm_factor). The potential returned is
-    zeros. The returned function carries the force scale as ``.scale``.
+    zeros. ``n_chains`` is the number of parallel chains the function will
+    be called with; ``fused="auto"`` reads it. The returned function carries
+    the force scale as ``.scale`` and the resolved path as ``.mode``.
     """
     device = resolve_device(device)
     buf = diffusion.buffers
@@ -55,7 +59,7 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
     t_norm = float(t) / diffusion.timesteps
     scale = 1.0 / (kbt_inv * sqrt_one_minus)
     model = diffusion.model
-    mode = resolve_fused_mode(model, fused, device)
+    mode = resolve_fused_mode(model, fused, n_chains, device)
 
     if mode == "cl":
         from twoforone_torch.ops.fused_score_cl import augment_params_cl, fused_force_cl
@@ -64,21 +68,23 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
 
         def eps_fn(x):
             return fused_force_cl(x, t_norm, folded)
+    elif mode == "clx":
+        from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
+
+        eps_fn = make_clx_force_fn(model, params, t_norm, device)
     elif mode == "never":
-        import copy
-
-        from twoforone_torch.models.graph_transformer import score_forward
-        from twoforone_torch.utils.convert import params_from_jax
-
-        net = copy.deepcopy(model).to(device)
-        net.load_state_dict(params_from_jax(params))
-        net.eval()
+        score_fn = diffusion.score_fn(params, device)
 
         def eps_fn(x):
             tt = torch.full((x.shape[0],), t_norm, dtype=torch.float32, device=x.device)
-            return score_forward(net, x, tt)
+            return score_fn(x, tt)
+    elif mode == "always":
+        raise NotImplementedError(
+            "fused='always' is the head-packed kernel K4 "
+            "(twoforone_tpu/ops/fused_score.py), not ported yet (ROADMAP B3)"
+        )
     else:
-        raise ValueError(f"unknown fused mode {fused!r} (auto, cl, never)")
+        raise ValueError(f"unknown fused mode {fused!r} (auto, cl, clx, never)")
 
     def force_fn(x):
         forces = -eps_fn(x) * scale
@@ -135,7 +141,7 @@ class LangevinDiffusion:
 
         self.force_fn = make_diffusion_force_fn(
             diffusion, params, t, kbt_inv=self.kb_inv / temp_data,
-            fused=fused, device=device,
+            fused=fused, n_chains=init_sample.shape[0], device=device,
         )
 
         if friction is None:

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from twoforone_torch.ops import _build
+from twoforone_torch.ops.attention_cl_core import cl_attention_reference
 from twoforone_torch.utils.device import resolve_device
 
 # Largest bead count at which the kernel has been held against its plain
@@ -67,7 +68,7 @@ class FoldedCL:
     layers: list  # per-layer dicts of tensors
     glob: dict  # h0 (N, C), wt (C,), wdec (C,), bdec (1,)
     flat: torch.Tensor  # kernel layout, 1-D float32
-    scratch_floats: int | None = None  # kernel residuals per chain (CUDA only)
+    scratch_floats: int | None = None  # kernel residuals per chain, set at first launch
 
     @property
     def inner(self) -> int:
@@ -168,18 +169,12 @@ def augment_params_cl(model, params, device="cuda") -> FoldedCL:
     ).astype(np.float32)
     dev = resolve_device(device)
     to_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
-    fw = FoldedCL(
+    return FoldedCL(
         n=n, c=c, heads=heads, dh=dh, ff=layers[0]["w1"].shape[1],
         layers=[{k: to_t(v) for k, v in d.items() if not k.endswith("T")} for d in layers],
         glob={k: to_t(v) for k, v in glob.items()},
         flat=to_t(flat),
     )
-    if dev.type == "cuda":
-        lib = _lib()
-        if lib.fused_force_cl_weight_floats(*_dims(fw)) != fw.flat.numel():
-            raise RuntimeError("folded weight buffer does not match the kernel's layout")
-        fw.scratch_floats = lib.fused_force_cl_scratch_floats(*_dims(fw))
-    return fw
 
 
 def _layer_norm(h, g, b, eps=1e-5):
@@ -188,12 +183,16 @@ def _layer_norm(h, g, b, eps=1e-5):
     return (h - mean) * torch.rsqrt(var + eps) * g + b
 
 
-def _energy_cl(xc, t, fw: FoldedCL):
+def _energy_cl(xc, t, fw: FoldedCL, attention):
     """Summed energy of all chains; transcription of ``_energy_forward_cl``
-    in the (B, N, feature) layout. xc: (B, N, 3) centred coordinates."""
+    in the (B, N, feature) layout. xc: (B, N, 3) centred coordinates; ``t``
+    a float or a 0-d tensor. ``attention`` computes the N^2 block,
+    ``(q, k, v, xc, qb, qkd) -> (out, fdiff)``: the plain version for this
+    module, the kernel pair on the attention-core path
+    (``ops/fused_score_clx.py``)."""
     bsz, n, _ = xc.shape
     heads, dh = fw.heads, fw.dh
-    scale = dh**-0.5
+    t = t if torch.is_tensor(t) else float(t)
     h = fw.glob["h0"] + t * fw.glob["wt"]  # (N, C)
     h = h.expand(bsz, n, fw.c)
     for d in fw.layers:
@@ -201,18 +200,11 @@ def _energy_cl(xc, t, fw: FoldedCL):
         q = (hl @ d["wq"] + d["bq"]).view(bsz, n, heads, dh)
         k = (hl @ d["wk"] + d["bk"]).view(bsz, n, heads, dh)
         v = (hl @ d["wv"] + d["bv"]).view(bsz, n, heads, dh)
-        kd = d["kc"].view(3, heads, dh)
         qb = torch.einsum("bihd,hd->bhi", q, d["bc"].view(heads, dh))  # q . b_comb
-        q_kd = torch.einsum("bihd,chd->bhic", q, kd)  # (B, H, N, 3)
-        qkd_x_diag = torch.einsum("bhic,bic->bhi", q_kd, xc)
-        sim = torch.einsum("bihd,bjhd->bhij", q, k)
-        sim = sim + qb[..., None]
-        sim = sim + torch.einsum("bhic,bjc->bhij", q_kd, xc)
-        sim = sim - qkd_x_diag[..., None]
-        attn = torch.softmax(scale * sim, dim=-1)  # over j
-        out_h = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(bsz, n, heads * dh)
-        fdiff = torch.einsum("bhij,bjc->bhic", attn, xc) - xc[:, None]  # (B, H, N, 3)
-        attn_out = out_h @ d["wo"] + torch.einsum("bhic,hcd->bid", fdiff, d["md"]) + d["bo"]
+        qkd = torch.einsum("bihd,chd->bhic", q, d["kc"].view(3, heads, dh))  # q . K_diff
+        out_h, fdiff = attention(q, k, v, xc, qb, qkd)  # (B, N, H, dh), (B, H, N, 3)
+        attn_out = (out_h.reshape(bsz, n, heads * dh) @ d["wo"]
+                    + torch.einsum("bhic,hcd->bid", fdiff, d["md"]) + d["bo"])
 
         gate = torch.sigmoid(attn_out @ d["ga1"] + h @ d["gh1"])[..., None]
         h = attn_out * gate + h * (1.0 - gate)
@@ -226,13 +218,20 @@ def _energy_cl(xc, t, fw: FoldedCL):
     return energy.sum()
 
 
-def fused_force_cl_reference(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (B, N, 3) -> eps_hat (B, N, 3)."""
+def eps_hat_cl(x: torch.Tensor, t, fw: FoldedCL, attention) -> torch.Tensor:
+    """``-dE/dx_c`` of :func:`_energy_cl` by autograd: (B, N, 3) -> (B, N, 3),
+    at any bead count. Opens ``enable_grad`` itself, so it also runs inside a
+    ``no_grad`` step loop."""
     xc = x - x.mean(dim=1, keepdim=True)
     with torch.enable_grad():
         xc = xc.detach().requires_grad_(True)
-        (grad,) = torch.autograd.grad(_energy_cl(xc, float(t), fw), xc)
+        (grad,) = torch.autograd.grad(_energy_cl(xc, t, fw, attention), xc)
     return -grad
+
+
+def fused_force_cl_reference(x: torch.Tensor, t, fw: FoldedCL) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (B, N, 3) -> eps_hat (B, N, 3)."""
+    return eps_hat_cl(x, t, fw, cl_attention_reference)
 
 
 def _lib():
@@ -274,6 +273,10 @@ def fused_force_cl(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
     if fw.flat.device != x.device:
         raise ValueError(f"weights on {fw.flat.device}, coordinates on {x.device}")
     lib = _lib()
+    if fw.scratch_floats is None:
+        if lib.fused_force_cl_weight_floats(*_dims(fw)) != fw.flat.numel():
+            raise RuntimeError("folded weight buffer does not match the kernel's layout")
+        fw.scratch_floats = lib.fused_force_cl_scratch_floats(*_dims(fw))
     x = x.contiguous()
     bsz = x.shape[0]
     out = torch.empty_like(x)
