@@ -12,7 +12,13 @@ models, with bench.py's settings:
   chain at batch 1024);
 - trp-cage (N=20, nf=128, chain20 weights, t=15): Langevin at 1000 chains
   (the attention-core kernel pair inside an eager energy) beside the plain
-  path, and DDIM-100 sampling at batch 1024.
+  path, and DDIM-100 sampling at batch 1024;
+- the fused force kernel for every edge configuration: chignolin Langevin
+  through ``LangevinDiffusion(fused="always")`` at 100 and 1000 chains, and
+  DDIM-100 at batch 1024 through ``make_fused_sample_fn(kernel="auto")`` on
+  the upstream-default edge configuration (squared distances and absolute
+  coordinates; no trained model has it, so the weights come from a seed) at
+  chignolin width.
 
 Phases (any failure exits non-zero):
 
@@ -27,7 +33,13 @@ Phases (any failure exits non-zero):
 5. trp-cage Langevin likewise (counts, steps/s on the kernel path and on the
    plain path, 10-step comparison);
 6. i.i.d. sampling likewise (resolved kernel, counts, finiteness, centre of
-   mass, spread of the samples, samples/s, DDIM-20 against the plain path).
+   mass, spread of the samples, samples/s, DDIM-20 against the plain path);
+7. chignolin Langevin through ``fused="always"`` (counts, finiteness,
+   steps/s beside phase 3's, 10-step comparison with the plain path);
+8. sampling through ``kernel="auto"`` on the default edge configuration
+   (resolves to ``"packed"``; counts, finiteness, centre of mass, samples/s;
+   every score call of a DDIM-20 chain against the plain version at the same
+   state, and the chain's samples beside the plain path's).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -49,6 +61,15 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_REL = 1e-4  # kernel vs plain version, relative to the largest |reference|
+# The fused force kernel for every edge configuration is held against its
+# plain version evaluated in float64 on the same inputs. With squared
+# distances on untrained weights (an edge embedding of fan-in 1 has unit
+# variance) the scores reach hundreds and the softmax is sharp: the float32
+# plain version itself then sits up to ~3e-4 of the largest force from the
+# float64 one. The kernel may be TOL_REL from float64, or this many times as
+# far from it as the float32 plain version is, whichever is larger; on
+# trained weights and without distances that is TOL_REL.
+TOL_F32_FACTOR = 4.0
 TOL_TRAJ_REL = 1e-4  # 10-step trajectories, relative to the largest |x|
 # DDIM-20 samples, kernel path vs plain path, in units of norm_factor (the
 # size of a typical coordinate; the largest is an outlier, a chain that ends
@@ -66,6 +87,9 @@ CLIP_X0 = 10.0  # the strided samplers' clamp on the x0 estimate, normalized uni
 TOL_COM = 1e-4  # centre of mass of a sample, in units of norm_factor
 
 EDGES = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
+# The upstream default: squared distances on the edges, absolute coordinates
+# in the node features, no intrinsic coordinates.
+DEFAULT_EDGES = dict(use_intrinsic_coords=False, use_abs_coords=True, use_distances=True)
 CHIGNOLIN = dict(name="chain10", n=10, nf=64, norm=3.113133430480957, temp=340, t_noise=20)
 TRP_CAGE = dict(name="chain20", n=20, nf=128, norm=5.08211088180542, temp=290, t_noise=15)
 BBA = dict(name="chain28", n=28, nf=96, norm=6.294918537139893, temp=325, t_noise=15)
@@ -89,6 +113,10 @@ K1_TIMED_CHAINS = (*CHAINS, DDIM_BATCH)
 # paths, BBA, and a ragged case.
 CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATCH})),
                (28, 256), (11, 3))
+# The fused force kernel for every edge configuration (K4).
+K4_TIMED_STEPS = 500
+K4_DDIM_BATCH = 1024
+K4_CHAINS = sorted({AGREE_BATCH, *CHAINS, K4_DDIM_BATCH})
 
 
 def log(msg):
@@ -117,13 +145,17 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def fused_force_flops(fw, chains):
+def fused_force_flops(fw, chains, intrinsic=True, distances=False, abs_coords=False):
     """Operations of one fused force call: every product of the forward and
     of the input-gradient backward (elementwise work is a few % and left
-    out). Per chain per layer: 16 N C I + 8 N C F + 12 H N^2 dh + 18 N I."""
+    out). Per chain per layer 16 N C I + 8 N C F + 12 H N^2 dh, plus 18 N I
+    for the coordinate-difference terms and 8 N I + 50 H N^2 for the
+    squared-distance terms; per chain 12 N C for absolute coordinates in the
+    node embedding. The defaults are the production edge configuration."""
     n, c, i, f, h, dh = fw.n, fw.c, fw.inner, fw.ff, fw.heads, fw.dh
-    per_layer = 16 * n * c * i + 8 * n * c * f + 12 * h * n * n * dh + 18 * n * i
-    return chains * fw.n_layers * per_layer
+    per_layer = 16 * n * c * i + 8 * n * c * f + 12 * h * n * n * dh
+    per_layer += 18 * n * i * intrinsic + (8 * n * i + 50 * h * n * n) * distances
+    return chains * (fw.n_layers * per_layer + 12 * n * c * abs_coords)
 
 
 def core_work(b, n, h, dh):
@@ -136,11 +168,11 @@ def core_work(b, n, h, dh):
     return fwd, bwd
 
 
-def make_gd(spec):
+def make_gd(spec, edges=EDGES):
     from twoforone_torch.core.diffusion import GaussianDiffusion
     from twoforone_torch.models.graph_transformer import GraphTransformer
 
-    model = GraphTransformer(spec["n"], spec["nf"], 3, **EDGES)
+    model = GraphTransformer(spec["n"], spec["nf"], 3, **edges)
     return GaussianDiffusion(model=model, num_atoms=spec["n"], timesteps=1000,
                              norm_factor=spec["norm"], loss_weights="higheruntil_100")
 
@@ -207,22 +239,24 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from twoforone_torch.ops import _build
+    from twoforone_torch.models.graph_transformer import init_params
     from twoforone_torch.ops import attention_cl_core as acc
+    from twoforone_torch.ops import fused_score as fsc
     from twoforone_torch.ops import fused_score_cl as fcl
     from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
     from twoforone_torch.utils.artifacts import load_ema_params
 
     def reset_counts():
-        fcl.fused_force_cl.launches = 0
+        fcl.fused_force_cl.launches = fsc.fused_force.launches = 0
         acc.cl_attention_core.launches_fwd = acc.cl_attention_core.launches_bwd = 0
 
     def counts():
         return (fcl.fused_force_cl.launches, acc.cl_attention_core.launches_fwd,
-                acc.cl_attention_core.launches_bwd)
+                acc.cl_attention_core.launches_bwd, fsc.fused_force.launches)
 
     # ---------------------------------------------------------- phase 1
     t0 = time.perf_counter()
-    libraries = ("fused_score_cl", "attention_cl_core")
+    libraries = ("fused_score", "fused_score_cl", "attention_cl_core")
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(_build.load, libraries))
     log(f"phase1 build_s={time.perf_counter() - t0:.2f} built={sorted(_build.logs)}")
@@ -351,14 +385,106 @@ def main():
             f"bound_by={tm['bound_by']} gflop={flops / 1e9:.3f} mbytes={nbytes / 1e6:.1f} "
             f"achieved_gb_per_s={nbytes / tm['ms'] / 1e6:.1f}")
 
-    launches = {"k1": 0, "fwd": 0, "bwd": 0}
+    # K4, the fused force kernel for every edge configuration, against its
+    # plain version in float64 (see TOL_F32_FACTOR).
+    k4_err = {"abs": 0.0, "rel": 0.0}
+
+    def k4_against_f64(out, x, t, fw32, fw64):
+        """Errors of a kernel result and of the float32 plain version against
+        the float64 plain version at (x, t): the largest over the batch, and
+        the median and the 9th decile over the chains of each chain's error
+        relative to its own largest force."""
+        ref64 = fsc.fused_force_reference(x.double(), t, fw64)
+        ref32 = fsc.fused_force_reference(x, t, fw32)
+        own = ref64.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+        k_rel = (out - ref64).abs().amax(dim=(1, 2)) / own
+        p_rel = (ref32 - ref64).abs().amax(dim=(1, 2)) / own
+        return dict(
+            scale=ref64.abs().max().item(), err=(out - ref64).abs().max().item(),
+            plain_err=(ref32 - ref64).abs().max().item(),
+            vs_plain_f32=(out - ref32).abs().max().item(),
+            q50=k_rel.median().item(), q90=k_rel.quantile(0.9).item(),
+            plain_q50=p_rel.median().item(), plain_q90=p_rel.quantile(0.9).item(),
+            finite=bool(torch.isfinite(out).all()))
+
+    def check_k4(label, model, weights, chains, t_fixed, seed):
+        fw32 = fsc.augment_params(model, weights, dev)
+        fw64 = fsc.augment_params(model, weights, dev, dtype=torch.float64)
+        x = normal(seed, (chains, model.num_beads, 3), dev)
+        fixed = fsc.make_fused_force_kernel(model, weights, t_fixed, dev)
+        runtime = fsc.make_fused_force_kernel(model, weights, None, dev)
+        for tag, t, out in (("fixed", t_fixed, fixed(x)), ("runtime", 0.37, runtime(x, 0.37))):
+            torch.cuda.synchronize()
+            e = k4_against_f64(out, x, t, fw32, fw64)
+            scale = e["scale"]
+            tol = max(TOL_REL * scale, TOL_F32_FACTOR * e["plain_err"])
+            ok = e["finite"] and e["err"] <= tol
+            log(f"phase2 fused_force {label} N={model.num_beads} chains={chains} t={tag}:{t} "
+                f"max_abs_err={e['err']:.3e} max_rel_err={e['err'] / scale:.3e} "
+                f"plain_f32_rel_err={e['plain_err'] / scale:.3e} tol_rel={tol / scale:.3e} "
+                f"kernel_vs_plain_f32_rel={e['vs_plain_f32'] / scale:.3e} "
+                f"median_chain_rel_err={e['q50']:.3e} (plain f32 {e['plain_q50']:.3e}) ok={ok}")
+            if not ok:
+                fail("phase2: fused_force disagrees with its plain version")
+            k4_err["abs"] = max(k4_err["abs"], e["err"])
+            k4_err["rel"] = max(k4_err["rel"], e["err"] / scale)
+        return fixed, x
+
+    t10 = CHIGNOLIN["t_noise"] / 1000
+    for chains in K4_CHAINS:
+        # chain10 inputs are K1's of the same chain count: two hand-written
+        # kernels of one function.
+        fixed, x = check_k4("chain10", gd.model, params, chains, t10, chains)
+        k4_out, k1_out = fixed(x), fcl.fused_force_cl(x, t10, fw)
+        torch.cuda.synchronize()
+        err, scale = (k4_out - k1_out).abs().max().item(), k1_out.abs().max().item()
+        ok = err <= TOL_REL * scale
+        log(f"phase2 fused_force vs fused_force_cl chain10 chains={chains} "
+            f"max_abs_diff={err:.3e} max_rel_diff={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
+        if not ok:
+            fail("phase2: fused_force and fused_force_cl disagree on chain10")
+    for spec in (TRP_CAGE, BBA):
+        check_k4(spec["name"], make_gd(spec).model, load_ema_params(spec["name"]), 256,
+                 spec["t_noise"] / 1000, spec["n"])
+    gd_def = make_gd(CHIGNOLIN, DEFAULT_EDGES)
+    params_def = init_params(gd_def.model, 0)
+    for chains in (1000, K4_DDIM_BATCH):
+        check_k4("seeded distances+abs", gd_def.model, params_def, chains, t10, 50 + chains)
+    for seed, edges in enumerate((dict(DEFAULT_EDGES, use_intrinsic_coords=True),
+                                  dict(DEFAULT_EDGES, use_distances=False)), start=1):
+        label = "seeded " + "+".join(k[4:] for k, on in edges.items() if on)
+        model = make_gd(CHIGNOLIN, edges).model
+        check_k4(label, model, init_params(model, seed), 1000, t10, 60 + seed)
+    for seed, (n, nf, chains) in enumerate(((TRP_CAGE["n"], TRP_CAGE["nf"], 256),
+                                            (5, 64, 256), (11, 64, 3)), start=3):
+        model = make_gd(dict(n=n, nf=nf, norm=1.0), DEFAULT_EDGES).model
+        check_k4("seeded distances+abs", model, init_params(model, seed), chains, t10,
+                 70 + seed)
+
+    k4_timing = {}
+    for label, model, weights, chains in (
+            *((f"chain10_{c}", gd.model, params, c) for c in CHAINS),
+            (f"default_edges_{K4_DDIM_BATCH}", gd_def.model, params_def, K4_DDIM_BATCH)):
+        fixed = fsc.make_fused_force_kernel(model, weights, t10, dev)
+        x = normal(7, (chains, 10, 3), dev)
+        ms = cuda_time_ms(lambda: fixed(x), 50)
+        plain_ms = cuda_time_ms(lambda: fsc.fused_force_reference(x, t10, fixed.folded), 10)
+        f = fixed.folded
+        flops = fused_force_flops(f, chains, f.intrinsic, f.distances, f.abs_coords)
+        bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + fixed.folded.flat.numel()))
+        k4_timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                flops=flops)
+        log(f"phase2 timing fused_force {label} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} gflop={flops / 1e9:.3f} "
+            f"achieved_tflops={flops / ms / 1e9:.3f}")
+
+    launches = {"k1": 0, "fwd": 0, "bwd": 0, "k4": 0}
 
     def add_counts():
-        k1, fwd, bwd = counts()
-        launches["k1"] += k1
-        launches["fwd"] += fwd
-        launches["bwd"] += bwd
-        return k1, fwd, bwd
+        got = counts()
+        for name, count in zip(("k1", "fwd", "bwd", "k4"), got):
+            launches[name] += count
+        return got
 
     # ---------------------------------------------------------- phase 3
     sps = {}
@@ -368,10 +494,10 @@ def main():
             fail(f"phase3: fused='auto' resolved to {ld.force_fn.mode!r}")
         reset_counts()
         sps[chains], finite = timed_run(ld, WARMUP_STEPS, TIMED_STEPS)
-        k1, fwd, bwd = add_counts()
+        k1, fwd, bwd, k4 = add_counts()
         log(f"phase3 chignolin chains={chains} steps_per_s={sps[chains]:.2f} "
             f"launches={k1} steps={WARMUP_STEPS + TIMED_STEPS} finite={finite}")
-        if k1 != WARMUP_STEPS + TIMED_STEPS or fwd or bwd or not finite:
+        if k1 != WARMUP_STEPS + TIMED_STEPS or fwd or bwd or k4 or not finite:
             fail("phase3: kernel launches != steps, or non-finite coordinates")
 
     # ---------------------------------------------------------- phase 4
@@ -384,11 +510,11 @@ def main():
         fail(f"phase5: fused='auto' resolved to {ld.force_fn.mode!r}")
     reset_counts()
     trp_sps, finite = timed_run(ld, WARMUP_STEPS, TRP_TIMED_STEPS)
-    k1, fwd, bwd = add_counts()
+    k1, fwd, bwd, k4 = add_counts()
     steps = WARMUP_STEPS + TRP_TIMED_STEPS
     log(f"phase5 trp_cage chains={TRP_CHAINS} mode=clx steps_per_s={trp_sps:.2f} "
         f"launches_fwd={fwd} launches_bwd={bwd} steps={steps} finite={finite}")
-    if fwd != 3 * steps or bwd != 3 * steps or k1 or not finite:
+    if fwd != 3 * steps or bwd != 3 * steps or k1 or k4 or not finite:
         fail("phase5: attention-core launches != 3 x steps, or non-finite coordinates")
     ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "never", 10_000_000, 20, dev)
     reset_counts()
@@ -407,21 +533,18 @@ def main():
 
     # ---------------------------------------------------------- phase 6
     samples_per_s = {}
-    runs = (  # label, diffusion, weights, spec, batch, sample_steps, kernel, launches per call
-        (f"chignolin_ddim100_b{DDIM_BATCH}", gd, params, CHIGNOLIN, DDIM_BATCH, 100, "cl",
-         (1, 0, 0)),
-        (f"chignolin_ancestral1000_b{ANCESTRAL_BATCH}", gd, params, CHIGNOLIN, ANCESTRAL_BATCH,
-         None, "cl", (1, 0, 0)),
-        (f"trp_cage_ddim100_b{TRP_DDIM_BATCH}", gd_trp, params_trp, TRP_CAGE, TRP_DDIM_BATCH,
-         100, "clx", (0, 3, 3)),
-    )
-    for label, g, weights, spec, batch, sample_steps, kernel, per_call in runs:
+
+    def sampling_run(phase, label, g, weights, spec, batch, sample_steps, kernel, per_call,
+                     trained=True):
+        """One timed draw through ``kernel="auto"``: the resolved kernel, the
+        launch counts, shape, finiteness, centre of mass and, for trained
+        weights, the spread of the samples against the data's."""
         g.make_fused_sample_fn(weights, batch, sample_steps=3, device=dev)(
             torch.Generator(device=dev).manual_seed(0))  # warm-up
         fn = g.make_fused_sample_fn(weights, batch, kernel="auto", sample_steps=sample_steps,
                                     device=dev)
         if fn.kernel != kernel:
-            fail(f"phase6 {label}: kernel='auto' resolved to {fn.kernel!r}")
+            fail(f"{phase} {label}: kernel='auto' resolved to {fn.kernel!r}")
         calls = sample_steps or g.timesteps
         reset_counts()
         torch.cuda.synchronize()
@@ -435,22 +558,27 @@ def main():
         com = (out.mean(dim=1).abs().max() / spec["norm"]).item()
         std_ratio = (out.std() / spec["norm"]).item()
         ok = (finite and got == tuple(c * calls for c in per_call) and com <= TOL_COM
-              and 0.5 <= std_ratio <= 2.0 and tuple(out.shape) == (batch, spec["n"], 3))
-        log(f"phase6 {label} kernel={fn.kernel} samples_per_s={samples_per_s[label]:.2f} "
-            f"seconds={elapsed:.3f} score_calls={calls} launches_k1_fwd_bwd={got} "
+              and (not trained or 0.5 <= std_ratio <= 2.0)
+              and tuple(out.shape) == (batch, spec["n"], 3))
+        log(f"{phase} {label} kernel={fn.kernel} samples_per_s={samples_per_s[label]:.2f} "
+            f"seconds={elapsed:.3f} score_calls={calls} launches_k1_fwd_bwd_k4={got} "
             f"finite={finite} max_com_over_norm={com:.2e} std_over_norm={std_ratio:.3f} ok={ok}")
         if not ok:
-            fail(f"phase6 {label}: wrong launch count, shape, centre of mass or spread")
+            fail(f"{phase} {label}: wrong launch count, shape, centre of mass or spread")
 
-    for label, g, weights, spec, kernel in (("chignolin", gd, params, CHIGNOLIN, "cl"),
-                                            ("trp_cage", gd_trp, params_trp, TRP_CAGE, "clx")):
-        table = {}
+    noise_table = {}
 
-        def hook(tag, shape, table=table):
-            if tag not in table:
-                seed = 10_000 if tag == "init" else tag
-                table[tag] = normal(seed, shape, dev)
-            return table[tag]
+    def hook(tag, shape):
+        """Injected noise of the DDIM-20 comparisons: one table per shape."""
+        key = (tag, tuple(shape))
+        if key not in noise_table:
+            noise_table[key] = normal(10_000 if tag == "init" else tag, shape, dev)
+        return noise_table[key]
+
+    def ddim20_agree(phase, label, g, weights, spec, kernel, hold=True):
+        """DDIM-20 with the same injected noise through the kernel path and
+        the plain path, compared in units of norm_factor. ``hold=False``
+        reports the numbers and fails only on non-finite samples."""
 
         outs = {kern: g.make_fused_sample_fn(weights, AGREE_BATCH, kernel=kern,
                                              sample_steps=20, device=dev)(noise=hook)
@@ -461,25 +589,103 @@ def main():
         per_chain = delta.abs().amax(dim=(1, 2))
         # Chains of the plain path that end on the x0 clamp (|x| = 10 normalized).
         clipped = int((outs["xla"].abs().amax(dim=(1, 2)) >= 0.99 * CLIP_X0 * norm).sum())
-        ok = (bool(torch.isfinite(outs[kernel]).all()) and rms <= TOL_SAMPLE_RMS
-              and diff <= TOL_SAMPLE_MAX)
-        log(f"phase6 {label} DDIM-20 {kernel} vs plain, in units of norm_factor: "
+        ok = bool(torch.isfinite(outs[kernel]).all()) and (
+            not hold or (rms <= TOL_SAMPLE_RMS and diff <= TOL_SAMPLE_MAX))
+        log(f"{phase} {label} DDIM-20 {kernel} vs plain, in units of norm_factor (held={hold}): "
             f"rms_diff={rms:.3e} tol_rms={TOL_SAMPLE_RMS} max_diff={diff:.3e} "
             f"tol_max={TOL_SAMPLE_MAX} median_chain_diff={per_chain.median().item():.3e} "
             f"worst_chain={int(per_chain.argmax())} "
             f"max_coord={outs['xla'].abs().max().item() / norm:.3f} "
             f"chains_on_x0_clip={clipped} ok={ok}")
         if not ok:
-            fail(f"phase6 {label}: kernel path and plain path samples disagree")
+            fail(f"{phase} {label}: kernel path and plain path samples disagree")
+
+    sampling_run("phase6", f"chignolin_ddim100_b{DDIM_BATCH}", gd, params, CHIGNOLIN,
+                 DDIM_BATCH, 100, "cl", (1, 0, 0, 0))
+    sampling_run("phase6", f"chignolin_ancestral1000_b{ANCESTRAL_BATCH}", gd, params, CHIGNOLIN,
+                 ANCESTRAL_BATCH, None, "cl", (1, 0, 0, 0))
+    sampling_run("phase6", f"trp_cage_ddim100_b{TRP_DDIM_BATCH}", gd_trp, params_trp, TRP_CAGE,
+                 TRP_DDIM_BATCH, 100, "clx", (0, 3, 3, 0))
+    ddim20_agree("phase6", "chignolin", gd, params, CHIGNOLIN, "cl")
+    ddim20_agree("phase6", "trp_cage", gd_trp, params_trp, TRP_CAGE, "clx")
+
+    # ---------------------------------------------------------- phase 7
+    k4_sps = {}
+    for chains in CHAINS:
+        ld = make_sim(gd, params, CHIGNOLIN, chains, "always", 10_000_000, WARMUP_STEPS, dev)
+        if ld.force_fn.mode != "always":
+            fail(f"phase7: fused='always' resolved to {ld.force_fn.mode!r}")
+        reset_counts()
+        k4_sps[chains], finite = timed_run(ld, WARMUP_STEPS, K4_TIMED_STEPS)
+        k1, fwd, bwd, k4 = add_counts()
+        steps = WARMUP_STEPS + K4_TIMED_STEPS
+        log(f"phase7 chignolin fused=always chains={chains} steps_per_s={k4_sps[chains]:.2f} "
+            f"(fused=auto, the cl kernel: {sps[chains]:.2f}) launches={k4} "
+            f"launches_fused_force_cl={k1} steps={steps} finite={finite}")
+        if k4 != steps or k1 or fwd or bwd or not finite:
+            fail("phase7: kernel launches != steps, another kernel ran, or non-finite "
+                 "coordinates")
+    ten_steps_agree("phase7 chignolin", gd, params, CHIGNOLIN, 100, "always", dev)
+
+    # ---------------------------------------------------------- phase 8
+    # Untrained weights: the spread of the samples says nothing and is not held.
+    sampling_run("phase8", f"default_edges_ddim100_b{K4_DDIM_BATCH}", gd_def, params_def,
+                 CHIGNOLIN, K4_DDIM_BATCH, 100, "packed", (0, 0, 0, 1), trained=False)
+    # An untrained network is no denoiser: its x0 estimates sit on the clip_x0
+    # clamp, its chain is chaotic and its states are badly conditioned (forces
+    # reach 1e4 to 1e5 and a few chains of a batch lose most of their digits in
+    # any float32 evaluation), so two float32 score functions that agree to
+    # rounding at every state still end far apart, and the largest error of a
+    # batch is the luck of its worst chain. What is held is every score call
+    # of the kernel path's chain against the plain version in float64 at the
+    # same state and t, chain by chain relative to the chain's own largest
+    # force: the median within TOL_REL, the 9th decile within the larger of
+    # TOL_REL and TOL_F32_FACTOR times the float32 plain version's. The
+    # samples of the two paths are printed beside it.
+    fn = gd_def.make_fused_sample_fn(params_def, AGREE_BATCH, kernel="packed", sample_steps=20,
+                                     device=dev)
+    fw32 = fsc.augment_params(gd_def.model, params_def, dev)
+    fw64 = fsc.augment_params(gd_def.model, params_def, dev, dtype=torch.float64)
+    steps_seen = []
+
+    def checked_score(x, t):
+        out = fn.score_fn(x, t)
+        e = k4_against_f64(out, x, t, fw32, fw64)
+        e["ok"] = (e["finite"] and e["q50"] <= TOL_REL
+                   and e["q90"] <= max(TOL_REL, TOL_F32_FACTOR * e["plain_q90"]))
+        steps_seen.append(dict(e, t=t))
+        return out
+
+    checked_score.scalar_t = True
+    from twoforone_torch.core.diffusion import ddim_sample_loop
+
+    reset_counts()
+    mol = ddim_sample_loop(gd_def.buffers, checked_score, (AGREE_BATCH, 10, 3), sample_steps=20,
+                           objective=gd_def.objective, noise=hook, device=dev)
+    ok = (len(steps_seen) == 20 and all(e["ok"] for e in steps_seen)
+          and counts() == (0, 0, 0, 20) and bool(torch.isfinite(mol).all()))
+    worst = {k: max(e[k] for e in steps_seen) for k in ("q50", "q90", "plain_q50", "plain_q90")}
+    log(f"phase8 default_edges DDIM-20 packed, every score call vs plain f64 at the same "
+        f"state, per chain: calls={len(steps_seen)} worst_median_rel_err={worst['q50']:.3e} "
+        f"(plain f32 {worst['plain_q50']:.3e}) worst_9th_decile_rel_err={worst['q90']:.3e} "
+        f"(plain f32 {worst['plain_q90']:.3e}) "
+        f"worst_batch_max_rel_err={max(e['err'] / e['scale'] for e in steps_seen):.3e} "
+        f"(plain f32 {max(e['plain_err'] / e['scale'] for e in steps_seen):.3e}) "
+        f"largest_force={max(e['scale'] for e in steps_seen):.3e} ok={ok}")
+    if not ok:
+        fail("phase8: a score call of the packed chain disagrees with its plain version")
+    ddim20_agree("phase8", "default_edges", gd_def, params_def, CHIGNOLIN, "packed", hold=False)
 
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         f"trp_cage_chains_{TRP_CHAINS}_clx": trp_sps,
         f"trp_cage_chains_{TRP_CHAINS}_never": trp_plain_sps,
+        **{f"chignolin_chains_{c}_always": k4_sps[c] for c in CHAINS},
     }))
     log("samples_per_s " + json.dumps(samples_per_s))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
+    log("fused_force_timing " + json.dumps(k4_timing))
     main_k1 = timing[1000]
     kernels = [{
         "name": "fused_force_cl",
@@ -509,6 +715,21 @@ def main():
             "bound_by": tm["bound_by"],
             "library_ms": None,
         })
+    main_k4 = k4_timing["chain10_1000"]
+    kernels.append({
+        "name": "fused_force",
+        "route": "cuda",
+        "source": "twoforone_torch/ops/csrc/fused_score.cu",
+        "replaces": "twoforone_tpu/ops/fused_score.py:418",
+        "launches": launches["k4"],
+        "max_abs_err": k4_err["abs"],
+        "max_rel_err": k4_err["rel"],
+        "ms": main_k4["ms"],
+        "plain_ms": main_k4["plain_ms"],
+        "bound_ms": main_k4["bound_ms"],
+        "bound_by": main_k4["bound_by"],
+        "library_ms": None,
+    })
     log(json.dumps({"kernels": kernels}))
     log(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,7 @@ def _entry_points():
     from twoforone_torch.dynamics.integrators import LangevinSimulation
     from twoforone_torch.dynamics.langevin import LangevinDiffusion, make_diffusion_force_fn
     from twoforone_torch.models.graph_transformer import GraphTransformer
+    from twoforone_torch.ops.fused_score import make_fused_force_kernel
     from twoforone_torch.ops.fused_score_cl import augment_params_cl
     from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
 
@@ -130,6 +131,8 @@ def _entry_points():
             force_fn=force_fn, initial_coordinates=init, length=10, save_interval=5, **kw),
         "augment_params_cl": lambda **kw: augment_params_cl(model, params, **kw),
         "make_clx_force_fn": lambda **kw: make_clx_force_fn(model, params, 0.1, **kw),
+        "make_fused_force_kernel": lambda **kw: make_fused_force_kernel(
+            model, params, 0.1, **kw),
         "GaussianDiffusion.sample": lambda **kw: gd.sample(
             params, 2, torch.Generator().manual_seed(0), sample_steps=2, **kw),
         "GaussianDiffusion.make_fused_sample_fn": lambda **kw: gd.make_fused_sample_fn(
@@ -161,7 +164,8 @@ def _model_params(model):
 
 @pytest.mark.parametrize("name", ["LangevinDiffusion", "make_diffusion_force_fn",
                                   "LangevinSimulation", "augment_params_cl",
-                                  "make_clx_force_fn", "GaussianDiffusion.sample",
+                                  "make_clx_force_fn", "make_fused_force_kernel",
+                                  "GaussianDiffusion.sample",
                                   "GaussianDiffusion.make_fused_sample_fn",
                                   "GaussianDiffusion.loss"])
 def test_entry_points_need_cuda_unless_cpu(name, monkeypatch):

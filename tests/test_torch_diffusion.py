@@ -323,18 +323,45 @@ def test_sampler_and_langevin_share_one_gate(n, chains):
     other = _gd(n, use_abs_coords=True)
     assert other.resolve_sample_kernel("auto", chains, "cuda") == "packed"
     assert resolve_fused_mode(other.model, "auto", chains, "cuda") == "never"
+    assert other.resolve_sample_kernel("auto", chains, "cpu") == "xla"
+    assert resolve_fused_mode(other.model, "auto", chains, "cpu") == "never"
 
 
-@pytest.mark.parametrize("kernel,use_abs", [("packed", False), ("auto", True)])
-def test_packed_kernel_is_not_ported_and_raises(kernel, use_abs):
+@pytest.mark.parametrize("abs_coords", [False, True])
+@pytest.mark.parametrize("intrinsic,distances", [(True, False), (False, True), (True, True),
+                                                 (False, False)])
+def test_auto_sample_kernel_for_every_edge_configuration(intrinsic, distances, abs_coords):
+    """The JAX package's gate: on the card every edge configuration but the
+    production one gets "packed" from "auto", at any bead count; on the CPU
+    "auto" is the plain network for all of them, and says so."""
+    production = intrinsic and not distances and not abs_coords
+    for n in (6, 40):
+        gd = _gd(n, use_intrinsic_coords=intrinsic, use_distances=distances,
+                 use_abs_coords=abs_coords)
+        on_card = gd.resolve_sample_kernel("auto", 1024, "cuda")
+        assert on_card == (("cl" if n == 6 else "xla") if production else "packed")
+        assert gd.resolve_sample_kernel("auto", 1024, "cpu") == "xla"
+        assert gd.resolve_sample_kernel("packed", 1024, "cpu") == "packed"
+    fn = gd.make_fused_sample_fn(_params(gd.model), 8, sample_steps=2, device="cpu")
+    assert fn.kernel == "xla"
+
+
+@pytest.mark.parametrize("kernel,use_abs", [("packed", False), ("packed", True), ("auto", True)])
+def test_packed_kernel_builds_and_unknown_kernel_raises(kernel, use_abs):
+    """kernel="packed" builds for the production configuration and for
+    another one and reports its name; "auto" on the CPU reports "xla" and
+    runs the plain network; an unknown name raises."""
     gd = _gd(6, use_abs_coords=use_abs)
-    with pytest.raises(NotImplementedError, match="K4"):
-        gd.make_fused_sample_fn(_params(gd.model), 8, kernel=kernel, device="cpu")
+    fn = gd.make_fused_sample_fn(_params(gd.model), 8, kernel=kernel, sample_steps=3,
+                                 device="cpu")
+    assert fn.kernel == ("packed" if kernel == "packed" else "xla")
+    out = fn(torch.Generator().manual_seed(0))
+    assert out.shape == (8, 6, 3) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="unknown kernel"):
         gd.make_fused_sample_fn(_params(gd.model), 8, kernel="mosaic", device="cpu")
 
 
-@pytest.mark.parametrize("kernel", ["cl", "clx"])
+@pytest.mark.parametrize("kernel", ["cl", "clx", "packed"])
 @pytest.mark.parametrize("steps,solver", [(None, "ddim"), (6, "ddim"), (6, "dpm2m")])
 def test_fused_sample_paths_agree_with_plain_network(kernel, steps, solver):
     """On the CPU the fused paths run their plain versions: with the same

@@ -92,11 +92,11 @@ def _jax_ten_steps():
     return init, noise, np.asarray(x) * jd.norm_factor
 
 
-@pytest.mark.parametrize("fused", ["never", "cl"])
+@pytest.mark.parametrize("fused", ["never", "cl", "always"])
 def test_ten_langevin_steps_match_jax_loop(fused):
     """bench.py's settings on chain10 forces, 16 chains, 10 BAOAB steps with
-    the same injected noise. fused="cl" runs the fused kernel's plain
-    version (CPU tensors). Tolerance 1e-4 relative to the largest
+    the same injected noise. fused="cl" and fused="always" run their fused
+    kernels' plain versions (CPU tensors). Tolerance 1e-4 relative to the largest
     coordinate: per-step force differences of ~1e-6 relative compound over
     ten steps."""
     gd, params = _port_chain10()
@@ -106,6 +106,7 @@ def test_ten_langevin_steps_match_jax_loop(fused):
                            fused=fused, device="cpu", **BENCH)
     draws = iter(torch.from_numpy(noise))
     td.sim._draw_noise = lambda like: next(draws)
+    assert td.force_fn.mode == fused
     out = td.sample()
     assert out.shape == (16, N, 3)
     np.testing.assert_allclose(out, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
@@ -172,13 +173,72 @@ def test_gate_passes_explicit_modes_and_rejects_other_edge_configs():
     assert resolve_fused_mode(other, "auto", 1024, "cuda") == "never"
 
 
-@pytest.mark.parametrize("fused,error", [("always", NotImplementedError), ("mosaic", ValueError)])
-def test_unported_and_unknown_force_paths_raise(fused, error):
-    """fused="always" is the head-packed kernel K4, not ported yet: it raises
-    and names K4 rather than falling through to another path."""
+OTHER_EDGES = [  # (use_intrinsic_coords, use_distances): every edge configuration
+    (True, False), (False, True), (True, True), (False, False)]
+
+
+@pytest.mark.parametrize("abs_coords", [False, True])
+@pytest.mark.parametrize("intrinsic,distances", OTHER_EDGES)
+def test_auto_gate_for_every_edge_configuration(intrinsic, distances, abs_coords):
+    """Off the card "auto" is the plain path whatever the edge configuration;
+    on the card only the production configuration gets a kernel from the
+    Langevin gate, and the other seven run the plain network (the JAX
+    package's gate: "always" is opt-in)."""
+    from twoforone_tpu.dynamics.langevin import resolve_fused_mode as jresolve
+    from twoforone_tpu.models.graph_transformer import GraphTransformer as JGT
+
+    kw = dict(use_intrinsic_coords=intrinsic, use_distances=distances,
+              use_abs_coords=abs_coords)
+    model = GraphTransformer(10, 8, 1, heads=2, dim_head=4, **kw)
+    jmodel = JGT(num_beads=10, hidden_nf=8, n_layers=1, **kw)
+    production = intrinsic and not distances and not abs_coords
+    assert model.is_production_edge_config == production
+    assert resolve_fused_mode(model, "auto", 1024, "cpu") == "never"
+    assert jresolve(jmodel, "auto", 1024, "cpu") == "never"
+    expected = "cl" if production else "never"
+    assert resolve_fused_mode(model, "auto", 1024, "cuda") == expected
+    assert jresolve(jmodel, "auto", 1024, "tpu") == expected
+    assert resolve_fused_mode(model, "always", 1024, "cpu") == "always"
+
+
+@pytest.mark.parametrize("fused,match", [("mosaic", "unknown fused mode"),
+                                         ("always", "conservative")])
+def test_unknown_force_path_and_non_conservative_always_raise(fused, match):
+    """An unknown mode raises and names the modes; fused="always" on a model
+    that predicts noise instead of an energy raises rather than falling
+    through to another path."""
     gd, params = _port_chain10()
-    with pytest.raises(error, match="K4" if fused == "always" else "unknown fused mode"):
+    if fused == "always":
+        model = GraphTransformer(N, 64, 3, conservative=False, **EDGES)
+        gd = GaussianDiffusion(model=model, num_atoms=N, timesteps=1000, norm_factor=3.1)
+    with pytest.raises(ValueError, match=match):
         make_diffusion_force_fn(gd, params, 20, 1.0, fused=fused, device="cpu")
+
+
+@pytest.mark.parametrize("intrinsic,distances", OTHER_EDGES)
+def test_always_force_fn_matches_plain_network_for_every_edge_configuration(intrinsic,
+                                                                            distances):
+    """fused="always" (on the CPU: the kernel's plain version) gives the
+    forces of fused="never" for each edge configuration with absolute
+    coordinates, seeded weights. 1e-4 of the largest force: two float32
+    evaluations of one network, and with squared distances on untrained
+    weights (an edge embedding of fan-in 1 has unit variance) the scores are
+    large and the softmax sharp, which costs digits (measured 3e-5 there,
+    1e-6 without distances)."""
+    from twoforone_torch.models.graph_transformer import init_params
+
+    model = GraphTransformer(6, 16, 2, heads=2, dim_head=8, use_intrinsic_coords=intrinsic,
+                             use_distances=distances, use_abs_coords=True)
+    gd = GaussianDiffusion(model=model, num_atoms=6, timesteps=50, norm_factor=2.0)
+    params = init_params(model, 4)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(5, 6, 3)).astype(np.float32))
+    fns = {mode: make_diffusion_force_fn(gd, params, 5, 1.7, fused=mode, device="cpu")
+           for mode in ("always", "never")}
+    assert fns["always"].mode == "always" and fns["always"].scale == fns["never"].scale
+    _, got = fns["always"](x)
+    _, ref = fns["never"](x)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
 
 
 def test_ten_langevin_steps_trp_cage_clx_match_jax_loop():

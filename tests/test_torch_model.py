@@ -16,7 +16,11 @@ from twoforone_tpu.models.graph_transformer import GraphTransformer as JGT
 from twoforone_tpu.models.graph_transformer import score_forward as jscore
 from twoforone_tpu.ops import attention as jattn
 from twoforone_tpu.utils.artifacts import load_ema_params as jload
-from twoforone_torch.models.graph_transformer import GraphTransformer, score_forward
+from twoforone_torch.models.graph_transformer import (
+    GraphTransformer,
+    init_params,
+    score_forward,
+)
 from twoforone_torch.ops import attention as tattn
 from twoforone_torch.utils.artifacts import load_ema_params
 from twoforone_torch.utils.convert import params_from_jax
@@ -101,3 +105,36 @@ def test_attention_ops_match_jax(has_diff, has_dist):
     ref = jattn.edge_biased_attention(J(q), J(k), J(v), J(edges), J(w_e), J(b_comb), scale)
     out = tattn.edge_biased_attention(T(q), T(k), T(v), T(edges), T(w_e), T(b_comb), scale)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("abs_coords", [False, True])
+@pytest.mark.parametrize("intrinsic,distances", [(True, False), (False, True), (True, True),
+                                                 (False, False)])
+def test_init_params_tree_equals_model_init(intrinsic, distances, abs_coords):
+    """The port's seeded initializer gives the flax tree of ``model.init``:
+    the same keys, shapes and dtypes for every edge configuration (the
+    numbers differ: another generator), in flax's initializer families, and
+    it loads into the port's module."""
+    kw = dict(use_intrinsic_coords=intrinsic, use_distances=distances,
+              use_abs_coords=abs_coords)
+    jm = JGT(num_beads=6, hidden_nf=16, n_layers=2, heads=2, dim_head=8, **kw)
+    jp = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 6, 3)), jnp.zeros((1,)),
+                 return_energy=True)["params"]
+    model = GraphTransformer(6, 16, 2, heads=2, dim_head=8, **kw)
+    tp = init_params(model, 0)
+    ref = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(jp)}
+    got = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(tp)}
+    assert got.keys() == ref.keys()
+    for key, leaf in ref.items():
+        assert got[key].shape == leaf.shape and got[key].dtype == leaf.dtype, key
+        if key.endswith("['bias']") or key.endswith("_bias']"):
+            assert not got[key].any() and not np.asarray(leaf).any(), key
+        elif key.endswith("['scale']"):
+            assert (got[key] == 1).all() and (np.asarray(leaf) == 1).all(), key
+    # lecun-normal: variance 1 / fan_in, truncated at two standard deviations
+    w = tp["layers_0_attn"]["to_kv"]["kernel"]  # (16, 32)
+    assert abs(w.std() * 16**0.5 - 1.0) < 0.1
+    assert np.abs(w).max() <= 2.0 / 0.87962566103423978 / 16**0.5 + 1e-6
+    assert not np.array_equal(tp["layers_0_attn"]["to_q"]["kernel"],
+                              init_params(model, 1)["layers_0_attn"]["to_q"]["kernel"])
+    model.load_state_dict(params_from_jax(tp))  # strict: every key and shape

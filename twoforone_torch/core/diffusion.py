@@ -445,10 +445,13 @@ class GaussianDiffusion:
         plain network (the JAX package's name for its plain path, kept so the
         same arguments work in both), "auto" = :meth:`resolve_sample_kernel`:
         on the card "cl" up to ``VERIFIED_MAX_N`` beads, "clx" up to
-        ``CLX_MAX_N`` beads from ``CLX_MIN_CHAINS`` samples, else "xla".
-        "packed" (the head-packed kernel K4, also what "auto" gives a
-        non-production edge config) is not ported yet and raises. The
-        resolved name is ``sample.kernel``.
+        ``CLX_MAX_N`` beads from ``CLX_MIN_CHAINS`` samples, else "xla";
+        "packed" = the fused force kernel for every edge configuration
+        (:mod:`twoforone_torch.ops.fused_score`; the JAX package's name for
+        its head-packed kernel), which is also what "auto" gives a model
+        with another edge configuration than the production one on the
+        card. The resolved name is ``sample.kernel``, the score function the
+        chain calls ``sample.score_fn``.
 
         The fused paths take one scalar t per score call (every chain of a
         batch is at the same timestep).
@@ -477,10 +480,12 @@ class GaussianDiffusion:
             def score_fn(x, t_norm):
                 return fused_force_cl(x, float(one_t(t_norm)), folded)
         elif kernel == "packed":
-            raise NotImplementedError(
-                "kernel='packed' is the head-packed kernel K4 "
-                "(twoforone_tpu/ops/fused_score.py), not ported yet (ROADMAP B3)"
-            )
+            from twoforone_torch.ops.fused_score import make_fused_force_kernel
+
+            packed = make_fused_force_kernel(m, params, None, device)
+
+            def score_fn(x, t_norm):
+                return packed(x, one_t(t_norm))
         else:
             raise ValueError(f"unknown kernel {kernel!r} (auto | cl | clx | xla | packed)")
 
@@ -496,4 +501,5 @@ class GaussianDiffusion:
             return mol * self.norm_factor
 
         sample.kernel = kernel
+        sample.score_fn = score_fn
         return sample

@@ -10,10 +10,12 @@
 Force paths (``fused``): ``"cl"`` is the fused CUDA force kernel
 (:mod:`twoforone_torch.ops.fused_score_cl`), ``"clx"`` the attention-core
 kernel pair inside an eager energy (:mod:`twoforone_torch.ops.fused_score_clx`),
-``"never"`` the plain ``GraphTransformer`` with autograd, and ``"auto"`` picks
-by the JAX package's gate (:func:`resolve_fused_mode`). ``"always"`` (the
-head-packed kernel K4 of ``twoforone_tpu/ops/fused_score.py``) is not ported
-yet and raises.
+``"always"`` the fused CUDA force kernel for every edge configuration
+(:mod:`twoforone_torch.ops.fused_score`), ``"never"`` the plain
+``GraphTransformer`` with autograd, and ``"auto"`` picks by the JAX package's
+gate (:func:`resolve_fused_mode`), which never picks ``"always"``: a model
+with another edge configuration than the production one runs the plain
+network unless the caller asks for the kernel.
 """
 
 from __future__ import annotations
@@ -51,6 +53,12 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
     zeros. ``n_chains`` is the number of parallel chains the function will
     be called with; ``fused="auto"`` reads it. The returned function carries
     the force scale as ``.scale`` and the resolved path as ``.mode``.
+
+    ``fused="always"`` runs any conservative model, whatever its edge
+    configuration, through one kernel launch per call. The JAX function's
+    ``fused_block`` is a TPU tiling argument (chains per grid step, with the
+    chains padded to a multiple of it) and is left out: the kernel takes any
+    number of chains.
     """
     device = resolve_device(device)
     buf = diffusion.buffers
@@ -79,12 +87,11 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
             tt = torch.full((x.shape[0],), t_norm, dtype=torch.float32, device=x.device)
             return score_fn(x, tt)
     elif mode == "always":
-        raise NotImplementedError(
-            "fused='always' is the head-packed kernel K4 "
-            "(twoforone_tpu/ops/fused_score.py), not ported yet (ROADMAP B3)"
-        )
+        from twoforone_torch.ops.fused_score import make_fused_force_kernel
+
+        eps_fn = make_fused_force_kernel(model, params, t_norm, device)
     else:
-        raise ValueError(f"unknown fused mode {fused!r} (auto, cl, clx, never)")
+        raise ValueError(f"unknown fused mode {fused!r} (auto, cl, clx, always, never)")
 
     def force_fn(x):
         forces = -eps_fn(x) * scale

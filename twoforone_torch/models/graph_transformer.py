@@ -23,6 +23,7 @@ maps a flax tree onto these names.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -216,6 +217,61 @@ class GraphTransformer(nn.Module):
         return out
 
 
+def init_params(model: GraphTransformer, seed: int) -> dict:
+    """Random weights for ``model`` in the flax parameter tree's layout
+    (nested dicts of float32 numpy arrays, as
+    :func:`twoforone_torch.utils.artifacts.load_ema_params` returns them):
+    the counterpart of the JAX module's ``model.init``.
+
+    Same keys, shapes and initializer families as flax's defaults:
+    lecun-normal kernels (a normal truncated at two standard deviations with
+    variance 1 / fan_in), zero biases, unit LayerNorm scales. The numbers come
+    from numpy's generator seeded with ``seed``, so they are not the bits a
+    JAX key would give.
+    """
+    rng = np.random.default_rng(seed)
+
+    def kernel(fan_in, fan_out):
+        w = rng.normal(size=(fan_in, fan_out))
+        while True:  # redraw what falls outside two standard deviations
+            out = np.abs(w) > 2.0
+            if not out.any():
+                break
+            w[out] = rng.normal(size=int(out.sum()))
+        # 0.8796... is the standard deviation of the truncated unit normal.
+        return (w * (fan_in**-0.5 / 0.87962566103423978)).astype(np.float32)
+
+    def dense(fan_in, fan_out, bias=True):
+        d = {"kernel": kernel(fan_in, fan_out)}
+        if bias:
+            d["bias"] = np.zeros((fan_out,), np.float32)
+        return d
+
+    def norm(dim):
+        return {"scale": np.ones((dim,), np.float32), "bias": np.zeros((dim,), np.float32)}
+
+    c, inner = model.hidden_nf, model.heads * model.dim_head
+    params = {
+        "node_embedding": dense(model.num_beads + 3 * model.use_abs_coords + 1, c),
+        "edge_embedding": dense(model.edge_in_dim, c),
+    }
+    for i in range(model.n_layers):
+        params[f"layers_{i}_attn_norm"] = norm(c)
+        params[f"layers_{i}_attn"] = {
+            "to_q": dense(c, inner),
+            "to_kv": dense(c, 2 * inner),
+            "edges_to_kv_kernel": kernel(c, inner),
+            "edges_to_kv_bias": np.zeros((inner,), np.float32),
+            "to_out": dense(inner, c),
+        }
+        params[f"layers_{i}_attn_res"] = {"proj": dense(3 * c, 1, bias=False)}
+        params[f"layers_{i}_ff_norm"] = norm(c)
+        params[f"layers_{i}_ff"] = {"fc1": dense(c, 4 * c), "fc2": dense(4 * c, c)}
+        params[f"layers_{i}_ff_res"] = {"proj": dense(3 * c, 1, bias=False)}
+    params["node_decoder"] = dense(c, 1 if model.conservative else 3)
+    return params
+
+
 def score_forward(model: GraphTransformer, x: torch.Tensor, t: torch.Tensor,
                   return_energy: bool = False) -> torch.Tensor:
     """Model forward in "score" convention: returns (B, N, 3) noise/forces.
@@ -232,5 +288,9 @@ def score_forward(model: GraphTransformer, x: torch.Tensor, t: torch.Tensor,
     with torch.enable_grad():
         xc = xc.detach().requires_grad_(True)
         energy = model(xc, t, return_energy=True).sum()
-        (grad,) = torch.autograd.grad(energy, xc)
+        (grad,) = torch.autograd.grad(energy, xc, allow_unused=True)
+    if grad is None:
+        # The zero-feature edge configuration without absolute coordinates has
+        # an energy that does not depend on x: its force is zero.
+        return torch.zeros_like(x)
     return -grad

@@ -45,15 +45,16 @@ def auto_fused_path(model, n_chains, device, other_edges: str = "plain") -> str:
     path in both: with the production edge configuration on a CUDA device,
     ``"cl"`` up to ``VERIFIED_MAX_N`` beads, ``"clx"`` up to ``CLX_MAX_N``
     beads from ``CLX_MIN_CHAINS`` chains (``n_chains`` None counts as too
-    few), else ``"plain"``. Off the card the answer is ``"plain"``: the
-    kernels run nowhere else. A model with another edge configuration gets
-    ``other_edges``, the one point where the two callers differ (the Langevin
-    path runs the plain network, the sampler names the head-packed kernel).
+    few), else ``"plain"``. Off the card the answer is ``"plain"`` whatever
+    the edge configuration: the kernels run nowhere else. On the card a model
+    with another edge configuration gets ``other_edges``, the one point where
+    the two callers differ (the Langevin path runs the plain network, the
+    sampler names the fused kernel for every edge configuration).
     """
-    if not model.is_production_edge_config:
-        return other_edges
     if torch.device(device).type != "cuda":
         return "plain"
+    if not model.is_production_edge_config:
+        return other_edges
     if model.num_beads <= VERIFIED_MAX_N:
         return "cl"
     if model.num_beads <= CLX_MAX_N and n_chains is not None and n_chains >= CLX_MIN_CHAINS:
