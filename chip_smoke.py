@@ -25,7 +25,10 @@ Phases (any failure exits non-zero):
 1. build every CUDA kernel from ``twoforone_torch/ops/csrc`` (all ``nvcc``
    runs started together; set-up time); print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the paths give it, and time both;
+   shapes the paths give it, and time both; for the two whole-force kernels
+   also ragged tiles (chain counts around the tile size), a chain's result
+   alone against the same chain in a large batch, two calls bit for bit,
+   times beside the earlier design's, and the compiler's registers and spills;
 3. chignolin Langevin with the launch counters set to 0 just before and read
    just after; counts, finiteness, steps/s;
 4. 10 chignolin steps with the same injected noise through the kernel path
@@ -48,6 +51,7 @@ prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -57,9 +61,11 @@ import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor cores
-# and HBM3 bandwidth. Every kernel here computes in FP32 on CUDA cores.
+# and HBM3 bandwidth. Every kernel here computes a float32 function in float32
+# on the CUDA cores, so the operation bound is taken at the FP32 rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 TOL_REL = 1e-4  # kernel vs plain version, relative to the largest |reference|
 # The fused force kernel for every edge configuration is held against its
 # plain version evaluated in float64 on the same inputs. With squared
@@ -101,6 +107,7 @@ TRP_CHAINS = 1000
 TRP_TIMED_STEPS = 500
 TRP_PLAIN_STEPS = 100
 HEADS, DH = 8, 64
+PLAIN_REPS = 5  # timed calls of a plain version (a kernel: 50, or 20 at trp-cage width)
 # Batch sizes of the sampling runs of phase 6. Every chain count a path gives
 # a kernel is also a shape of that kernel's check in phase 2.
 DDIM_BATCH = 4096
@@ -109,6 +116,26 @@ TRP_DDIM_BATCH = 1024
 AGREE_BATCH = 256  # the 10-step and DDIM-20 comparisons of kernel and plain path
 K1_CHAINS = sorted({AGREE_BATCH, *CHAINS, ANCESTRAL_BATCH, DDIM_BATCH})
 K1_TIMED_CHAINS = (*CHAINS, DDIM_BATCH)
+# Chain counts that leave a ragged last tile or change the tile size, beside
+# those of the paths; TILE_AROUND is the chain count whose tile size T gives
+# T - 1, T, T + 1.
+TILE_AROUND = 1000
+RAGGED_CHAINS = (1, 257)
+ALONE_CHAINS = (1, 3, 100, 1000)  # x[:k] alone against the same chains in the largest batch
+TOL_ALONE_REL = 1e-6  # where the tile size differs; the same tile size must give the same bits
+# The one-chain-per-block kernels these replaced, as PERF.md records them: this
+# script on an NVIDIA H100 80GB HBM3 at 700.00 W (ms by chain count).
+EARLIER_MS = {
+    "fused_force_cl": {100: 1.1063, 1000: 5.2606, 4096: 21.3375},
+    "fused_force": {"chain10_100": 1.3486, "chain10_1000": 6.2071, "default_edges_1024": 6.4658},
+}
+# Rates of the same run (steps/s, samples/s).
+EARLIER_RATES = {
+    "chignolin_chains_100": 832.93, "chignolin_chains_1000": 187.76,
+    "chignolin_chains_100_always": 711.68, "chignolin_chains_1000_always": 160.66,
+    "chignolin_ddim100_b4096": 1917.40, "chignolin_ancestral1000_b1024": 191.99,
+    "default_edges_ddim100_b1024": 1558.98,
+}
 # (N, B) of the attention-core checks: trp-cage at every chain count of its
 # paths, BBA, and a ragged case.
 CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATCH})),
@@ -143,6 +170,26 @@ def bound(flops, nbytes):
     """Least time the card could take, in ms, and which of the two sets it."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def resource_usage(text):
+    """ptxas's lines on registers and spills of one build (-Xptxas -v)."""
+    regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in text.splitlines()
+            if "Used " in ln and " registers" in ln]
+    spills = [int(ln.split(" bytes spill stores")[0].split()[-1]) for ln in text.splitlines()
+              if "bytes spill stores" in ln]
+    return dict(max_registers=max(regs, default=None), max_spill_store_bytes=max(spills, default=None),
+                functions=len(spills))
+
+
+def scratch_traffic_bytes(fw, chains, distances=False):
+    """Bytes of residuals that a whole-force call writes in its forward and
+    reads in its backward (once each), which pass through global memory."""
+    from twoforone_torch.ops.tile_plan import scratch_floats
+
+    per_chain_layer = scratch_floats(1, fw.n, fw.n, fw.c, fw.inner, fw.ff, fw.heads, 1, distances) \
+        - scratch_floats(1, fw.n, fw.n, fw.c, fw.inner, fw.ff, fw.heads, 0, distances)
+    return 2 * 4 * chains * fw.n_layers * per_chain_layer
 
 
 def fused_force_flops(fw, chains, intrinsic=True, distances=False, abs_coords=False):
@@ -245,6 +292,7 @@ def main():
     from twoforone_torch.ops import fused_score_cl as fcl
     from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
     from twoforone_torch.utils.artifacts import load_ema_params
+    from twoforone_torch.utils.device import sm_count
 
     def reset_counts():
         fcl.fused_force_cl.launches = fsc.fused_force.launches = 0
@@ -255,13 +303,19 @@ def main():
                 acc.cl_attention_core.launches_bwd, fsc.fused_force.launches)
 
     # ---------------------------------------------------------- phase 1
-    t0 = time.perf_counter()
+    t0 = started = time.perf_counter()
+
+    def mark(done):
+        """Seconds since the script began, printed as each phase ends."""
+        log(f"{done} done at_s={time.perf_counter() - started:.1f}")
+
     libraries = ("fused_score", "fused_score_cl", "attention_cl_core")
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(_build.load, libraries))
     log(f"phase1 build_s={time.perf_counter() - t0:.2f} built={sorted(_build.logs)}")
     for name, text in _build.logs.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
+        log(f"phase1 ptxas {name}: " + json.dumps(resource_usage(text)))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -275,37 +329,90 @@ def main():
     gd_trp = make_gd(TRP_CAGE)
     params_trp = load_ema_params(TRP_CAGE["name"])
 
+    mark("phase1")
+
     # ---------------------------------------------------------- phase 2
-    # K1, the fused force kernel, at every chain count of its paths.
+    # K1, the fused force kernel, at every chain count of its paths and at
+    # chain counts around its tile size.
+    from twoforone_torch.ops.tile_plan import plan_tiles
+
+    sms = sm_count(0)
+    k1_dims = (fw.n, fw.c, fw.heads, fw.dh, fw.ff, fw.n_layers)
+    tile = plan_tiles(TILE_AROUND, *k1_dims, sms).chains_per_tile
+    k1_chains = sorted({*K1_CHAINS, *RAGGED_CHAINS, *(c for c in (tile - 1, tile, tile + 1) if c)})
     k1_err = 0.0
-    for chains in K1_CHAINS:
+    for chains in k1_chains:
         x = normal(chains, (chains, 10, 3), dev)
+        plan = plan_tiles(chains, *k1_dims, sms)
         for label, t in (("fixed", CHIGNOLIN["t_noise"] / 1000), ("runtime", 0.37)):
             out = fcl.fused_force_cl(x, t, fw)
+            again = fcl.fused_force_cl(x, t, fw)
             torch.cuda.synchronize()
             ref = fcl.fused_force_cl_reference(x, t, fw)
             err = (out - ref).abs().max().item()
             scale = ref.abs().max().item()
-            ok = bool(torch.isfinite(out).all()) and err <= TOL_REL * scale
-            log(f"phase2 fused_force_cl chains={chains} t={label}:{t} max_abs_err={err:.3e} "
-                f"max_rel_err={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
+            same_bits = torch.equal(out, again)
+            ok = bool(torch.isfinite(out).all()) and err <= TOL_REL * scale and same_bits
+            log(f"phase2 fused_force_cl chains={chains} chains_per_tile={plan.chains_per_tile} "
+                f"rows={plan.rows} tiles={plan.tiles} blocks={plan.blocks} t={label}:{t} "
+                f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} tol_rel={TOL_REL} "
+                f"same_bits={same_bits} ok={ok}")
             if not ok:
-                fail("phase2: fused_force_cl disagrees with its plain version")
+                fail("phase2: fused_force_cl disagrees with its plain version or does not "
+                     "repeat bit for bit")
             k1_err = max(k1_err, err)
 
+    def alone_check(name, force, plan_of, n_beads, largest):
+        """A chain's result does not depend on its tile-mates: x[:k] alone
+        against the same chains inside the largest batch."""
+        x = normal(largest, (largest, n_beads, 3), dev)
+        whole = force(x)
+        for k in ALONE_CHAINS:
+            alone = force(x[:k].contiguous())
+            torch.cuda.synchronize()
+            same_tile = plan_of(k).chains_per_tile == plan_of(largest).chains_per_tile
+            same_bits = torch.equal(alone, whole[:k])
+            rel = ((alone - whole[:k]).abs().max() / whole[:k].abs().max()).item()
+            ok = same_bits if same_tile else rel <= TOL_ALONE_REL
+            log(f"phase2 {name} alone chains={k} of {largest}: same_tile_size={same_tile} "
+                f"same_bits={same_bits} max_rel_diff={rel:.3e} tol_rel={TOL_ALONE_REL} ok={ok}")
+            if not ok:
+                fail(f"phase2: a chain's {name} result depends on the batch it arrives in")
+
+    t10 = CHIGNOLIN["t_noise"] / 1000
+    alone_check("fused_force_cl", lambda x: fcl.fused_force_cl(x, t10, fw),
+                lambda k: plan_tiles(k, *k1_dims, sms), 10, DDIM_BATCH)
+
     timing = {}
+    fw64_k1 = fsc.augment_params(gd.model, params, dev, dtype=torch.float64)
     for chains in K1_TIMED_CHAINS:
         x = normal(7, (chains, 10, 3), dev)
-        t = CHIGNOLIN["t_noise"] / 1000
-        ms = cuda_time_ms(lambda: fcl.fused_force_cl(x, t, fw), 50)
-        plain_ms = cuda_time_ms(lambda: fcl.fused_force_cl_reference(x, t, fw), 10)
+        ms = cuda_time_ms(lambda: fcl.fused_force_cl(x, t10, fw), 50)
+        plain_ms = cuda_time_ms(lambda: fcl.fused_force_cl_reference(x, t10, fw), PLAIN_REPS)
+        ref64 = fsc.fused_force_reference(x.double(), t10, fw64_k1)
+        scale64 = ref64.abs().max().item()
+        rel = {name: (out - ref64).abs().max().item() / scale64 for name, out in (
+            ("kernel", fcl.fused_force_cl(x, t10, fw)),
+            ("plain_f32", fcl.fused_force_cl_reference(x, t10, fw)))}
         flops = fused_force_flops(fw, chains)
         bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + fw.flat.numel()))
+        plan = plan_tiles(chains, *k1_dims, sms)
+        scratch_bytes = scratch_traffic_bytes(fw, chains)
+        earlier = EARLIER_MS["fused_force_cl"][chains]
         timing[chains] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                              flops=flops)
+                              flops=flops, earlier_design_ms=earlier)
         log(f"phase2 timing fused_force_cl chains={chains} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} gflop={flops / 1e9:.3f} "
-            f"achieved_tflops={flops / ms / 1e9:.3f}")
+            f"(earlier design {earlier}, PERF.md) "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} bound_by={bound_by} "
+            f"residual_traffic_mb={scratch_bytes / 1e6:.1f} "
+            f"residual_traffic_ms_at_hbm_rate={scratch_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+            f"scratch_allocated_mb={4 * plan.blocks * plan.scratch_floats / 1e6:.1f} "
+            f"(L2 {L2_BYTES / 1e6:.0f} MB) gflop={flops / 1e9:.3f} "
+            f"achieved_tflops={flops / ms / 1e9:.3f} rel_err_vs_plain_f64: "
+            f"kernel={rel['kernel']:.2e} plain_f32={rel['plain_f32']:.2e}")
+    if timing[1000]["ms"] >= EARLIER_MS["fused_force_cl"][1000] \
+            or timing[100]["ms"] > EARLIER_MS["fused_force_cl"][100]:
+        fail("phase2: fused_force_cl is slower than the design it replaced")
 
     # K2 and K3, the attention core's forward and backward.
     core_err = {"fwd": 0.0, "bwd": 0.0}
@@ -372,10 +479,10 @@ def main():
     work = dict(zip(("fwd", "bwd"), core_work(b, n, HEADS, DH)))
     core_timing = {
         "fwd": dict(ms=cuda_time_ms(lambda: acc.cl_attention_fwd(*ins), 50),
-                    plain_ms=cuda_time_ms(lambda: acc.cl_attention_reference(*ins), 10)),
+                    plain_ms=cuda_time_ms(lambda: acc.cl_attention_reference(*ins), PLAIN_REPS)),
         "bwd": dict(ms=cuda_time_ms(lambda: acc.cl_attention_bwd(*ins, dout, dfd), 50),
                     plain_ms=cuda_time_ms(
-                        lambda: acc.cl_attention_bwd_reference(*ins, dout, dfd), 10)),
+                        lambda: acc.cl_attention_bwd_reference(*ins, dout, dfd), PLAIN_REPS)),
     }
     for which, tm in core_timing.items():
         flops, nbytes = work[which]
@@ -430,19 +537,26 @@ def main():
             k4_err["rel"] = max(k4_err["rel"], e["err"] / scale)
         return fixed, x
 
-    t10 = CHIGNOLIN["t_noise"] / 1000
-    for chains in K4_CHAINS:
+    k4_chains = sorted({*K4_CHAINS, *RAGGED_CHAINS,
+                        *(c for c in (tile - 1, tile, tile + 1) if c)})
+    for chains in k4_chains:
         # chain10 inputs are K1's of the same chain count: two hand-written
         # kernels of one function.
         fixed, x = check_k4("chain10", gd.model, params, chains, t10, chains)
-        k4_out, k1_out = fixed(x), fcl.fused_force_cl(x, t10, fw)
+        k4_out, k4_again, k1_out = fixed(x), fixed(x), fcl.fused_force_cl(x, t10, fw)
         torch.cuda.synchronize()
         err, scale = (k4_out - k1_out).abs().max().item(), k1_out.abs().max().item()
-        ok = err <= TOL_REL * scale
+        same_bits = torch.equal(k4_out, k4_again)
+        ok = err <= TOL_REL * scale and same_bits
         log(f"phase2 fused_force vs fused_force_cl chain10 chains={chains} "
-            f"max_abs_diff={err:.3e} max_rel_diff={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
+            f"max_abs_diff={err:.3e} max_rel_diff={err / scale:.3e} tol_rel={TOL_REL} "
+            f"same_bits={same_bits} ok={ok}")
         if not ok:
-            fail("phase2: fused_force and fused_force_cl disagree on chain10")
+            fail("phase2: fused_force and fused_force_cl disagree on chain10, or fused_force "
+                 "does not repeat bit for bit")
+    fw4 = fsc.augment_params(gd.model, params, dev)
+    alone_check("fused_force", lambda x: fsc.fused_force(x, t10, fw4),
+                lambda k: plan_tiles(k, *k1_dims, sms), 10, K4_DDIM_BATCH)
     for spec in (TRP_CAGE, BBA):
         check_k4(spec["name"], make_gd(spec).model, load_ema_params(spec["name"]), 256,
                  spec["t_noise"] / 1000, spec["n"])
@@ -463,19 +577,45 @@ def main():
 
     k4_timing = {}
     for label, model, weights, chains in (
-            *((f"chain10_{c}", gd.model, params, c) for c in CHAINS),
+            *((f"chain10_{c}", gd.model, params, c) for c in (*CHAINS, K4_DDIM_BATCH)),
             (f"default_edges_{K4_DDIM_BATCH}", gd_def.model, params_def, K4_DDIM_BATCH)):
         fixed = fsc.make_fused_force_kernel(model, weights, t10, dev)
         x = normal(7, (chains, 10, 3), dev)
         ms = cuda_time_ms(lambda: fixed(x), 50)
-        plain_ms = cuda_time_ms(lambda: fsc.fused_force_reference(x, t10, fixed.folded), 10)
+        plain_ms = cuda_time_ms(lambda: fsc.fused_force_reference(x, t10, fixed.folded),
+                                PLAIN_REPS)
         f = fixed.folded
         flops = fused_force_flops(f, chains, f.intrinsic, f.distances, f.abs_coords)
         bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + fixed.folded.flat.numel()))
+        scratch_bytes = scratch_traffic_bytes(f, chains, f.distances)
+        earlier = EARLIER_MS["fused_force"].get(label)
         k4_timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                flops=flops)
-        log(f"phase2 timing fused_force {label} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} gflop={flops / 1e9:.3f} "
+                                flops=flops, earlier_design_ms=earlier)
+        log(f"phase2 timing fused_force {label} kernel_ms={ms:.4f} "
+            f"(earlier design {earlier}, PERF.md) plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
+            f"residual_traffic_ms_at_hbm_rate={scratch_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+            f"gflop={flops / 1e9:.3f} achieved_tflops={flops / ms / 1e9:.3f}")
+        if earlier is not None and ms > earlier:
+            fail("phase2: fused_force is slower than the design it replaced")
+    # The two staged proteins of the attention-core path: the whole-force
+    # kernel beside the clx force evaluation that the path gate picks there.
+    for spec in (TRP_CAGE, BBA):
+        model, weights = make_gd(spec).model, load_ema_params(spec["name"])
+        t_fixed = spec["t_noise"] / 1000
+        packed = fsc.make_fused_force_kernel(model, weights, t_fixed, dev)
+        clx = make_clx_force_fn(model, weights, t_fixed, dev)
+        x = normal(8, (TRP_CHAINS, spec["n"], 3), dev)
+        ms = cuda_time_ms(lambda: packed(x), 20)
+        clx_ms = cuda_time_ms(lambda: clx(x), 20)
+        f = packed.folded
+        flops = fused_force_flops(f, TRP_CHAINS)
+        plan = plan_tiles(TRP_CHAINS, f.n, f.c, f.heads, f.dh, f.ff, f.n_layers, sms)
+        k4_timing[f"{spec['name']}_{TRP_CHAINS}"] = dict(ms=ms, clx_force_ms=clx_ms, flops=flops)
+        log(f"phase2 timing fused_force {spec['name']} N={spec['n']} C={spec['nf']} "
+            f"chains={TRP_CHAINS} chains_per_tile={plan.chains_per_tile} rows={plan.rows} "
+            f"kernel_ms={ms:.4f} clx_force_ms={clx_ms:.4f} "
+            f"bound_ms={flops / PEAK_FP32_FLOPS * 1e3:.4f} gflop={flops / 1e9:.3f} "
             f"achieved_tflops={flops / ms / 1e9:.3f}")
 
     launches = {"k1": 0, "fwd": 0, "bwd": 0, "k4": 0}
@@ -485,6 +625,8 @@ def main():
         for name, count in zip(("k1", "fwd", "bwd", "k4"), got):
             launches[name] += count
         return got
+
+    mark("phase2")
 
     # ---------------------------------------------------------- phase 3
     sps = {}
@@ -496,12 +638,17 @@ def main():
         sps[chains], finite = timed_run(ld, WARMUP_STEPS, TIMED_STEPS)
         k1, fwd, bwd, k4 = add_counts()
         log(f"phase3 chignolin chains={chains} steps_per_s={sps[chains]:.2f} "
+            f"(earlier design {EARLIER_RATES[f'chignolin_chains_{chains}']}, PERF.md) "
             f"launches={k1} steps={WARMUP_STEPS + TIMED_STEPS} finite={finite}")
         if k1 != WARMUP_STEPS + TIMED_STEPS or fwd or bwd or k4 or not finite:
             fail("phase3: kernel launches != steps, or non-finite coordinates")
 
+    mark("phase3")
+
     # ---------------------------------------------------------- phase 4
     ten_steps_agree("phase4 chignolin", gd, params, CHIGNOLIN, 100, "cl", dev)
+
+    mark("phase4")
 
     # ---------------------------------------------------------- phase 5
     ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "auto", 10_000_000,
@@ -530,6 +677,8 @@ def main():
         "rest_of_step_ms": step_ms - core_ms,
     }))
     ten_steps_agree("phase5 trp_cage", gd_trp, params_trp, TRP_CAGE, AGREE_BATCH, "clx", dev)
+
+    mark("phase5")
 
     # ---------------------------------------------------------- phase 6
     samples_per_s = {}
@@ -561,6 +710,7 @@ def main():
               and (not trained or 0.5 <= std_ratio <= 2.0)
               and tuple(out.shape) == (batch, spec["n"], 3))
         log(f"{phase} {label} kernel={fn.kernel} samples_per_s={samples_per_s[label]:.2f} "
+            f"(earlier design {EARLIER_RATES.get(label, 'unchanged code')}, PERF.md) "
             f"seconds={elapsed:.3f} score_calls={calls} launches_k1_fwd_bwd_k4={got} "
             f"finite={finite} max_com_over_norm={com:.2e} std_over_norm={std_ratio:.3f} ok={ok}")
         if not ok:
@@ -609,6 +759,8 @@ def main():
     ddim20_agree("phase6", "chignolin", gd, params, CHIGNOLIN, "cl")
     ddim20_agree("phase6", "trp_cage", gd_trp, params_trp, TRP_CAGE, "clx")
 
+    mark("phase6")
+
     # ---------------------------------------------------------- phase 7
     k4_sps = {}
     for chains in CHAINS:
@@ -620,12 +772,15 @@ def main():
         k1, fwd, bwd, k4 = add_counts()
         steps = WARMUP_STEPS + K4_TIMED_STEPS
         log(f"phase7 chignolin fused=always chains={chains} steps_per_s={k4_sps[chains]:.2f} "
-            f"(fused=auto, the cl kernel: {sps[chains]:.2f}) launches={k4} "
+            f"(earlier design {EARLIER_RATES[f'chignolin_chains_{chains}_always']}, PERF.md; "
+            f"fused=auto, the cl kernel: {sps[chains]:.2f}) launches={k4} "
             f"launches_fused_force_cl={k1} steps={steps} finite={finite}")
         if k4 != steps or k1 or fwd or bwd or not finite:
             fail("phase7: kernel launches != steps, another kernel ran, or non-finite "
                  "coordinates")
     ten_steps_agree("phase7 chignolin", gd, params, CHIGNOLIN, 100, "always", dev)
+
+    mark("phase7")
 
     # ---------------------------------------------------------- phase 8
     # Untrained weights: the spread of the samples says nothing and is not held.
@@ -676,6 +831,7 @@ def main():
         fail("phase8: a score call of the packed chain disagrees with its plain version")
     ddim20_agree("phase8", "default_edges", gd_def, params_def, CHIGNOLIN, "packed", hold=False)
 
+    mark("phase8")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         f"trp_cage_chains_{TRP_CHAINS}_clx": trp_sps,

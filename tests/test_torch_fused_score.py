@@ -228,8 +228,8 @@ def test_flat_buffer_order_and_size(intrinsic, distances, abs_coords):
     fw = fs.augment_params(tm, init_params(tm, 3), "cpu")
     order = fs.layer_order(intrinsic, distances)
     assert ("kc" in order) == intrinsic and ("kd" in order) == distances
-    assert order.index("bv") < order.index("wo") and order[-6:] == (
-        "wqT", "wkT", "wvT", "woT", "w1T", "w2T")
+    assert order.index("bqkv") < order.index("wo") and order[-4:] == (
+        "wqkvT", "woT", "w1T", "w2T")
     per_layer = (2 * c + 3 * (c * inner + inner) + 3 * inner * intrinsic + inner * distances
                  + inner * c + c + 2 * c + 2 * c + c * ff + ff + ff * c + c + 2 * c
                  + 4 * c * inner + 2 * c * ff)
@@ -285,7 +285,8 @@ def test_augment_rejects_non_conservative_and_mismatched_weights():
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
     """Kernel vs plain version on the card: chain10 weights (production
-    configuration, 100 chains) within 1e-4 of the largest force, and the
+    configuration; 100 chains, and chain counts around the tile size that
+    leave ragged tiles) within 1e-4 of the largest force, and the
     upstream-default configuration with seeded weights at chignolin width
     (ragged: 37 chains) against the float64 plain version, within the larger
     of 1e-4 and four times the float32 plain version's own distance to it
@@ -299,12 +300,13 @@ def test_kernel_matches_plain_version_on_card():
     rng = np.random.default_rng(2)
     model = GraphTransformer(10, 64, 3, **PRODUCTION)
     folded = fs.augment_params(model, load_ema_params("chain10"), "cuda")
-    x = torch.from_numpy(rng.normal(size=(100, 10, 3)).astype(np.float32)).cuda()
-    for t in (0.02, 0.37):
-        out = fs.fused_force(x, t, folded)
-        ref = fs.fused_force_reference(x, t, folded)
-        torch.cuda.synchronize()
-        assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    for chains in (100, 1, 3, 4, 5, 257, 1000, 1024):
+        x = torch.from_numpy(rng.normal(size=(chains, 10, 3)).astype(np.float32)).cuda()
+        for t in (0.02, 0.37):
+            out = fs.fused_force(x, t, folded)
+            ref = fs.fused_force_reference(x, t, folded)
+            torch.cuda.synchronize()
+            assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     model = GraphTransformer(10, 64, 3, **DEFAULT)
     params = init_params(model, 0)
     folded = fs.augment_params(model, params, "cuda")

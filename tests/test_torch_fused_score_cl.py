@@ -82,9 +82,11 @@ def test_augment_rejects_other_edge_configs():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
-    """Kernel vs plain version on the card at chain10 width, 100 chains
-    (the ragged edge). Tolerance 1e-4 relative to the largest force: both
-    are f32, summed in different orders."""
+    """Kernel vs plain version on the card at chain10 width: 100 chains, and
+    chain counts around the tile size that leave ragged tiles (1, T - 1, T,
+    T + 1 for the 1000-chain tile size, 257, 1000, 1024, 4096). Tolerance 1e-4
+    relative to the largest force: both are f32, summed in different orders.
+    A chain alone gives the same bits as inside the largest batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,10 +94,14 @@ def test_kernel_matches_plain_version_on_card():
     model = GraphTransformer(10, 64, 3, use_intrinsic_coords=True,
                              use_abs_coords=False, use_distances=False)
     folded = fcl.augment_params_cl(model, params, "cuda")
-    x = torch.from_numpy(np.random.default_rng(2).normal(size=(100, 10, 3)).astype(np.float32))
-    x = x.cuda()
-    for t in (0.02, 0.37):
-        out = fcl.fused_force_cl(x, t, folded)
-        ref = fcl.fused_force_cl_reference(x, t, folded)
-        torch.cuda.synchronize()
-        assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    rng = np.random.default_rng(2)
+    for chains in (100, 1, 3, 4, 5, 257, 1000, 1024, 4096):
+        x = torch.from_numpy(rng.normal(size=(chains, 10, 3)).astype(np.float32)).cuda()
+        for t in (0.02, 0.37):
+            out = fcl.fused_force_cl(x, t, folded)
+            ref = fcl.fused_force_cl_reference(x, t, folded)
+            torch.cuda.synchronize()
+            assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    alone = fcl.fused_force_cl(x[:3].contiguous(), 0.37, folded)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, out[:3])

@@ -76,7 +76,7 @@ def test_clx_on_cpu_counts_no_launch_and_needs_no_kernel_library():
     fn(torch.from_numpy(x[:3]), 0.1)
     assert (tcore.cl_attention_core.launches_fwd,
             tcore.cl_attention_core.launches_bwd) == before
-    assert fn.folded.scratch_floats is None  # the fused kernel's library was never asked
+    assert fn.folded.checked is False  # the fused kernel's library was never asked
     assert (CLX_MIN_CHAINS, CLX_MAX_N) == (256, 32)
 
 

@@ -7,8 +7,8 @@
 //   xc = x - mean_beads(x)
 //   h  = h0 + t * wt                                          (N, C)
 //   per layer:  hl = LN1(h)
-//               q = hl Wq + bq,  k = hl Wk + bk + xc Kc,  v = hl Wv + bv + xc Kc
-//               P_h = softmax_j(scale * q_h k_h^T),  o_h = P_h v_h   (per head)
+//               q = hl Wq + bq,  k' = hl Wk + bk + xc Kc,  v' = hl Wv + bv + xc Kc
+//               P_h = softmax_j(scale * q_h k'_h^T),  o_h = P_h v'_h   (per head)
 //               a = (o - xc Kc) Wo + bo
 //               h = h + g1 (a - h),   g1 = sigmoid(a.ga1 + h.gh1)
 //               f = gelu(LN2(h) W1 + b1) W2 + b2
@@ -21,30 +21,35 @@
 // same launch; no weight gradient is ever formed.
 //
 // What bounds it on the H100: operations. About 22 MFLOP per chain per call
-// at the chignolin width (N=10, C=64, 3 layers, 8 x 64 heads) against
-// ~0.24 MB of coordinates in and out per 1000 chains; the weights (~1.3 MB a layer with
-// the transposed copies) are read from L2 by every block.
+// at the chignolin width (N=10, C=64, 3 layers, 8 x 64 heads) against 240
+// bytes of coordinates in and out per chain. The residuals the backward needs
+// (about 0.26 MB a chain) pass through the block's scratch in global memory:
+// 0.5 GB written and read per 1000 chains, half of the operation bound's time
+// at the card's memory rate if all of it reached device memory.
 //
-// What the design does about it (simple f32 design, no tensor cores yet):
-// one thread block per chain keeps the chain's whole activation set in
-// shared memory (~112 KB at chignolin width, so two blocks fit an SM). Every
-// product is a loop of the block's own: each thread owns an output column
-// and keeps one accumulator per bead in registers, so each weight element
-// read from L2 feeds N FMAs and the bead rows come from shared memory as
-// float4 broadcasts. Residuals the backward needs are written to a scratch
-// buffer the caller allocates, rather than recomputed. Packing many chains
-// into one tile (to reuse each weight read across chains) and wgmma are
-// left for later work.
+// What the design does about it: several chains per tile (tile_gemm.cuh). A
+// fixed grid of thread blocks, two to an SM, walks over tiles of T chains;
+// the Python wrapper picks T from the chain count (ops/tile_plan.py), so that
+// many chains share each pass over the weights and a small batch still
+// spreads over all SMs. A tile's T * N rows (padded to a multiple of 16) go
+// through every projection as one product, with the weights staged through
+// shared memory by asynchronous copies and multiplied in float32 register
+// tiles. The three input projections
+// are one product against [Wq | Wk | Wv], and their three backward products
+// one against the stacked transposes. LayerNorm and the gates run over all
+// rows of the tile, eight lanes a row. The attention block takes one chain and
+// a group of its heads at a time, copies their slices of q, k, v into shared
+// memory and does the N^2 work there. Rows beyond the tile's chains hold zeros
+// or values derived from zeros and reach no chain's result, and no sum depends
+// on where in a tile a chain sits.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int MAX_N = 16;
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
+using namespace tile;
+
+constexpr int MAX_N = 64;
 
 struct Dims {
   int n, c, heads, dh, inner, ff, layers;
@@ -53,32 +58,46 @@ struct Dims {
 
 __host__ __device__ inline long long layer_floats(const Dims& d) {
   const long long C = d.c, I = d.inner, F = d.ff;
-  return 2 * C + 3 * (C * I + I) + 3 * I + I * C + C + 2 * C + 2 * C + C * F + F
-         + F * C + C + 2 * C + 3 * I * C + C * I + F * C + C * F;
+  return 2 * C + 3 * C * I + 3 * I + 3 * I + I * C + C + 2 * C + 2 * C + C * F + F + F * C + C
+         + 2 * C + 3 * I * C + C * I + F * C + C * F;
 }
 
 __host__ __device__ inline long long weight_floats(const Dims& d) {
   return d.layers * layer_floats(d) + (long long)d.n * d.c + 2LL * d.c + 1;
 }
 
-// Residuals kept for the backward, per chain per layer.
-__host__ __device__ inline long long resid_floats(const Dims& d) {
-  const long long N = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads;
-  return 4 * N * C + 3 * N * I + H * N * N + N * F + 2 * N;
+// Floats of one per-head matrix set [chain][head][i][j] of a tile.
+__host__ __device__ inline long long heads_floats(const Dims& d, int chains) {
+  return round4((long long)chains * d.heads * d.n * d.n);
 }
 
-__host__ __device__ inline long long round4(long long v) { return (v + 3) & ~3LL; }
+// Residuals kept for the backward, per layer, for a tile of `rows` rows.
+__host__ __device__ inline long long resid_floats(const Dims& d, int chains, int rows) {
+  const long long R = rows, C = d.c, I = d.inner, F = d.ff;
+  return 4 * R * C + 3 * R * I + heads_floats(d, chains) + R * F + 2 * R;
+}
 
-__host__ __device__ inline long long smem_floats(const Dims& d) {
-  const long long N = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads;
-  return 2 * round4(3 * N) + 5 * round4(N * C) + 4 * round4(N * I) + 2 * round4(H * N * N)
-         + round4(N * F) + 4 * MAX_N;
+// Working buffers of one block, beside the residuals.
+__host__ __device__ inline long long work_floats(const Dims& d, int rows) {
+  const long long R = rows, C = d.c, I = d.inner, F = d.ff;
+  return 3 * R * C + 5 * R * I + R * F;
+}
+
+// Must match tile_plan.py::plan_tiles (scratch_floats).
+__host__ __device__ inline long long block_scratch_floats(const Dims& d, int chains, int rows) {
+  return d.layers * resid_floats(d, chains, rows) + work_floats(d, rows);
+}
+
+// Must match tile_plan.py::plan_tiles (smem_bytes).
+__host__ __device__ inline long long smem_floats(const Dims& d, int chains, int rows) {
+  return work_smem_floats(rows, d.n, d.heads, d.dh) + 2 * round4(3LL * chains * d.n)
+         + round4(3LL * chains);
 }
 
 struct LayerW {
-  const float *ln1_g, *ln1_b, *wq, *bq, *wk, *bk, *wv, *bv, *kc, *wo, *bo, *ga1, *gh1;
+  const float *ln1_g, *ln1_b, *wqkv, *bqkv, *kc, *wo, *bo, *ga1, *gh1;
   const float *ln2_g, *ln2_b, *w1, *b1, *w2, *b2, *ga2, *gh2;
-  const float *wqT, *wkT, *wvT, *woT, *w1T, *w2T;
+  const float *wqkvT, *woT, *w1T, *w2T;
 };
 
 // Must match _LAYER_ORDER in fused_score_cl.py.
@@ -87,9 +106,7 @@ __device__ LayerW layer_weights(const float* w, const Dims& d, int l) {
   const float* p = w + l * layer_floats(d);
   LayerW L;
   L.ln1_g = p; p += C;  L.ln1_b = p; p += C;
-  L.wq = p; p += C * I; L.bq = p; p += I;
-  L.wk = p; p += C * I; L.bk = p; p += I;
-  L.wv = p; p += C * I; L.bv = p; p += I;
+  L.wqkv = p; p += 3 * C * I; L.bqkv = p; p += 3 * I;
   L.kc = p; p += 3 * I;
   L.wo = p; p += I * C; L.bo = p; p += C;
   L.ga1 = p; p += C;    L.gh1 = p; p += C;
@@ -97,420 +114,141 @@ __device__ LayerW layer_weights(const float* w, const Dims& d, int l) {
   L.w1 = p; p += C * F; L.b1 = p; p += F;
   L.w2 = p; p += F * C; L.b2 = p; p += C;
   L.ga2 = p; p += C;    L.gh2 = p; p += C;
-  L.wqT = p; p += I * C; L.wkT = p; p += I * C; L.wvT = p; p += I * C;
+  L.wqkvT = p; p += 3 * I * C;
   L.woT = p; p += C * I; L.w1T = p; p += F * C; L.w2T = p;
   return L;
 }
 
 struct Resid {
-  float *hin, *q, *k, *v, *p, *a, *g1, *hmid, *f1, *f, *g2;
+  float *hin, *qkv, *p, *a, *g1, *hmid, *f1, *f, *g2;
 };
 
-__device__ Resid resid(float* base, const Dims& d) {
-  const long long N = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads;
-  Resid R;
+__device__ Resid resid(float* base, const Dims& d, int chains, int rows) {
+  const long long R = rows, C = d.c, I = d.inner, F = d.ff;
+  Resid Rs;
   float* p = base;
-  R.hin = p; p += N * C;
-  R.q = p; p += N * I;
-  R.k = p; p += N * I;
-  R.v = p; p += N * I;
-  R.p = p; p += H * N * N;
-  R.a = p; p += N * C;
-  R.g1 = p; p += N;
-  R.hmid = p; p += N * C;
-  R.f1 = p; p += N * F;
-  R.f = p; p += N * C;
-  R.g2 = p;
-  return R;
+  Rs.hin = p; p += R * C;
+  Rs.qkv = p; p += 3 * R * I;
+  Rs.p = p; p += heads_floats(d, chains);
+  Rs.a = p; p += R * C;
+  Rs.g1 = p; p += R;
+  Rs.hmid = p; p += R * C;
+  Rs.f1 = p; p += R * F;
+  Rs.f = p; p += R * C;
+  Rs.g2 = p;
+  return Rs;
 }
 
-struct Smem {
-  float *x, *dx, *hs, *hl, *t1, *t2, *dh, *q, *k, *v, *u, *p, *ds, *f1, *row;
+struct Work {
+  float *hl, *t1, *dh, *u, *du, *dqkv, *df1;
 };
 
-__device__ Smem carve(float* s, const Dims& d) {
-  const long long N = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads;
-  Smem S;
-  S.x = s;  s += round4(3 * N);
-  S.dx = s; s += round4(3 * N);
-  S.hs = s; s += round4(N * C);
-  S.hl = s; s += round4(N * C);
-  S.t1 = s; s += round4(N * C);
-  S.t2 = s; s += round4(N * C);
-  S.dh = s; s += round4(N * C);
-  S.q = s;  s += round4(N * I);
-  S.k = s;  s += round4(N * I);
-  S.v = s;  s += round4(N * I);
-  S.u = s;  s += round4(N * I);
-  S.p = s;  s += round4(H * N * N);
-  S.ds = s; s += round4(H * N * N);
-  S.f1 = s; s += round4(N * F);
-  S.row = s;
-  return S;
+__device__ Work work(float* base, const Dims& d, int rows) {
+  const long long R = rows, C = d.c, I = d.inner;
+  Work Wk;
+  float* p = base;
+  Wk.hl = p; p += R * C;
+  Wk.t1 = p; p += R * C;
+  Wk.dh = p; p += R * C;
+  Wk.u = p; p += R * I;
+  Wk.du = p; p += R * I;
+  Wk.dqkv = p; p += 3 * R * I;
+  Wk.df1 = p;
+  return Wk;
 }
 
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// The attention block of layer W on a tile of `chains` chains (production
+// edges: coordinate differences, no distances).
+__device__ Attention attention(const Dims& d, const LayerW& W, const Resid& R, int chains, int rows,
+                               const float* xs, float* dxs) {
+  Attention t;
+  t.chains = chains; t.n = d.n; t.heads = d.heads; t.dh = d.dh; t.rows = rows;
+  t.scale = d.scale;
+  t.x = xs; t.dx = dxs;
+  t.kc = W.kc; t.kd = nullptr;
+  t.qkv = R.qkv; t.p = R.p; t.qs = nullptr; t.fd = nullptr;
+  return t;
 }
 
-__device__ inline void store(float* dst, const float* src, int count) {
-  for (int i = threadIdx.x; i < count; i += NTHREADS) dst[i] = src[i];
-  __syncthreads();
-}
-
-// Y[r*out + o] (= or +=) sum_i X[r*in + i] * W[i*out + o] (+ b[o]) for r < n.
-// X and Y in shared memory, W (in, out) row-major and b in global memory.
-// Each thread owns an output column and keeps one accumulator per bead.
-// When out < NTHREADS the reduction over i is split across thread groups
-// whose partial sums pass through `red` (red_cap floats of shared memory).
-// Requires in % 4 == 0 and 16-byte aligned rows of X.
-__device__ void matmul(const float* X, int in, const float* __restrict__ W,
-                       const float* __restrict__ b, float* Y, int out, int n,
-                       bool accumulate, float* red, int red_cap) {
-  int ks = 1;
-  if (out < NTHREADS && red != nullptr) {
-    ks = NTHREADS / out;
-    const int cap = red_cap / (n * out);
-    if (ks > cap) ks = cap;
-    if (ks < 1) ks = 1;
-  }
-  const int chunk = (((in + ks - 1) / ks) + 3) & ~3;
-  for (int idx = threadIdx.x; idx < out * ks; idx += NTHREADS) {
-    const int o = idx % out, s = idx / out;
-    const int i0 = s * chunk;
-    const int i1 = min(in, i0 + chunk);
-    float acc[MAX_N];
-#pragma unroll
-    for (int r = 0; r < MAX_N; ++r) acc[r] = 0.f;
-    for (int i = i0; i < i1; i += 4) {
-      const float w0 = __ldg(W + (size_t)i * out + o);
-      const float w1 = __ldg(W + (size_t)(i + 1) * out + o);
-      const float w2 = __ldg(W + (size_t)(i + 2) * out + o);
-      const float w3 = __ldg(W + (size_t)(i + 3) * out + o);
-#pragma unroll
-      for (int r = 0; r < MAX_N; ++r) {
-        if (r < n) {
-          const float4 xv = *reinterpret_cast<const float4*>(X + r * in + i);
-          float a = acc[r];
-          a = fmaf(xv.x, w0, a);
-          a = fmaf(xv.y, w1, a);
-          a = fmaf(xv.z, w2, a);
-          a = fmaf(xv.w, w3, a);
-          acc[r] = a;
-        }
-      }
-    }
-    if (ks == 1) {
-      const float bias = b ? __ldg(b + o) : 0.f;
-#pragma unroll
-      for (int r = 0; r < MAX_N; ++r) {
-        if (r < n) {
-          const float val = acc[r] + bias;
-          Y[r * out + o] = accumulate ? Y[r * out + o] + val : val;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < MAX_N; ++r)
-        if (r < n) red[(s * n + r) * out + o] = acc[r];
-    }
-  }
-  if (ks > 1) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n * out; idx += NTHREADS) {
-      const int r = idx / out, o = idx % out;
-      float val = b ? __ldg(b + o) : 0.f;
-      for (int s = 0; s < ks; ++s) val += red[(s * n + r) * out + o];
-      Y[idx] = accumulate ? Y[idx] + val : val;
-    }
-  }
-  __syncthreads();
-}
-
-// LayerNorm over the features of each row (eps 1e-5), one warp per row.
-__device__ void layer_norm(const float* X, float* Y, const float* __restrict__ g,
-                           const float* __restrict__ b, int n, int c) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += NWARPS) {
-    const float* x = X + r * c;
-    float s = 0.f;
-    for (int j = lane; j < c; j += 32) s += x[j];
-    const float mu = warp_sum(s) / c;
-    float v = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float dv = x[j] - mu;
-      v += dv * dv;
-    }
-    const float rs = rsqrtf(warp_sum(v) / c + 1e-5f);
-    for (int j = lane; j < c; j += 32)
-      Y[r * c + j] = (x[j] - mu) * rs * __ldg(g + j) + __ldg(b + j);
-  }
-  __syncthreads();
-}
-
-// DX += d LN(X) / dX applied to DY (the LayerNorm input gradient).
-__device__ void layer_norm_bwd(const float* X, const float* DY, const float* __restrict__ g,
-                               float* DX, int n, int c) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += NWARPS) {
-    const float* x = X + r * c;
-    float s = 0.f;
-    for (int j = lane; j < c; j += 32) s += x[j];
-    const float mu = warp_sum(s) / c;
-    float v = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float dv = x[j] - mu;
-      v += dv * dv;
-    }
-    const float rs = rsqrtf(warp_sum(v) / c + 1e-5f);
-    float s1 = 0.f, s2 = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float gy = DY[r * c + j] * __ldg(g + j);
-      s1 += gy;
-      s2 += gy * (x[j] - mu) * rs;
-    }
-    s1 = warp_sum(s1) / c;
-    s2 = warp_sum(s2) / c;
-    for (int j = lane; j < c; j += 32) {
-      const float xh = (x[j] - mu) * rs;
-      const float gy = DY[r * c + j] * __ldg(g + j);
-      DX[r * c + j] += rs * (gy - s1 - xh * s2);
-    }
-  }
-  __syncthreads();
-}
-
-// Gated residual: g = sigmoid(a.ga + h.gh); h <- a g + h (1 - g); G[r] = g.
-__device__ void gate_fwd(const float* A, float* Hs, const float* __restrict__ ga,
-                         const float* __restrict__ gh, float* G, int n, int c) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += NWARPS) {
-    float s = 0.f;
-    for (int j = lane; j < c; j += 32)
-      s += A[r * c + j] * __ldg(ga + j) + Hs[r * c + j] * __ldg(gh + j);
-    const float g = 1.f / (1.f + expf(-warp_sum(s)));
-    for (int j = lane; j < c; j += 32)
-      Hs[r * c + j] = A[r * c + j] * g + Hs[r * c + j] * (1.f - g);
-    if (lane == 0) G[r] = g;
-  }
-  __syncthreads();
-}
-
-// Backward of gate_fwd. On entry DH = dL/dh_out; on exit DH = dL/dh through
-// the gate and A (held the gate's input a) = dL/da.
-__device__ void gate_bwd(float* A, const float* Hin, const float* G,
-                         const float* __restrict__ ga, const float* __restrict__ gh,
-                         float* DH, int n, int c) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += NWARPS) {
-    const float g = G[r];
-    float dg = 0.f;
-    for (int j = lane; j < c; j += 32) dg += DH[r * c + j] * (A[r * c + j] - Hin[r * c + j]);
-    const float ds = warp_sum(dg) * g * (1.f - g);
-    for (int j = lane; j < c; j += 32) {
-      const float d = DH[r * c + j];
-      A[r * c + j] = d * g + ds * __ldg(ga + j);
-      DH[r * c + j] = d * (1.f - g) + ds * __ldg(gh + j);
-    }
-  }
-  __syncthreads();
-}
-
-// K += xc Kc, V += xc Kc, U = -xc Kc.
-__device__ void add_edge_terms(const float* X, const float* __restrict__ kc, float* K,
-                               float* V, float* U, int n, int I) {
-  for (int idx = threadIdx.x; idx < n * I; idx += NTHREADS) {
-    const int r = idx / I, e = idx % I;
-    const float xk = X[r * 3] * __ldg(kc + e) + X[r * 3 + 1] * __ldg(kc + I + e)
-                     + X[r * 3 + 2] * __ldg(kc + 2 * I + e);
-    K[idx] += xk;
-    V[idx] += xk;
-    U[idx] = -xk;
-  }
-  __syncthreads();
-}
-
-// DX[r, c] += sign * sum_e (A + B)[r, e] Kc[c, e]: the coordinate gradient
-// through the edge terms. One warp per (r, c).
-__device__ void edge_terms_bwd(const float* A, const float* B, float sign,
-                               const float* __restrict__ kc, float* DX, int n, int I) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rc = warp; rc < 3 * n; rc += NWARPS) {
-    const int r = rc / 3, c = rc % 3;
-    float s = 0.f;
-    for (int e = lane; e < I; e += 32) {
-      const float a = A[r * I + e] + (B ? B[r * I + e] : 0.f);
-      s += a * __ldg(kc + c * I + e);
-    }
-    s = warp_sum(s);
-    if (lane == 0) DX[rc] += sign * s;
-  }
-  __syncthreads();
-}
-
-// Out[(h*n + i)*n + j] = sum_d A[i, h*dh + d] B[j, h*dh + d].
-__device__ void head_dots(const float* A, const float* B, float* Out, int n, int heads,
-                          int dh, int I) {
-  for (int idx = threadIdx.x; idx < heads * n * n; idx += NTHREADS) {
-    const int h = idx / (n * n), i = (idx / n) % n, j = idx % n;
-    const float4* a = reinterpret_cast<const float4*>(A + i * I + h * dh);
-    const float4* bb = reinterpret_cast<const float4*>(B + j * I + h * dh);
-    float s = 0.f;
-    for (int d4 = 0; d4 < dh / 4; ++d4) {
-      const float4 av = a[d4], bv = bb[d4];
-      s += av.x * bv.x + av.y * bv.y + av.z * bv.z + av.w * bv.w;
-    }
-    Out[idx] = s;
-  }
-  __syncthreads();
-}
-
-// Y[i, e] (= or +=) sum_j M[(h*n + i)*n + j] Z[j, e] with h = e / dh
-// (transpose_m: M[(h*n + j)*n + i]).
-__device__ void head_mix(const float* M, const float* Z, float* Y, int n, int dh, int I,
-                         bool transpose_m, bool accumulate) {
-  for (int idx = threadIdx.x; idx < n * I; idx += NTHREADS) {
-    const int i = idx / I, e = idx % I, h = e / dh;
-    float s = accumulate ? Y[idx] : 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float m = transpose_m ? M[(h * n + j) * n + i] : M[(h * n + i) * n + j];
-      s += m * Z[j * I + e];
-    }
-    Y[idx] = s;
-  }
-  __syncthreads();
-}
-
-__device__ inline float gelu(float x) { return 0.5f * x * (1.f + erff(x * 0.70710678118654752f)); }
-
-__device__ inline float gelu_grad(float x) {
-  return 0.5f * (1.f + erff(x * 0.70710678118654752f))
-         + x * 0.39894228040143268f * expf(-0.5f * x * x);
-}
-
-__global__ void __launch_bounds__(NTHREADS)
+template <int TM>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_force_cl_kernel(const float* __restrict__ x, float* __restrict__ out,
-                      const float* __restrict__ w, float* __restrict__ scratch, float t,
-                      Dims d) {
-  extern __shared__ float4 smem4[];
-  Smem S = carve(reinterpret_cast<float*>(smem4), d);
-  const int n = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads;
-  const long long b = blockIdx.x;
+                      const float* __restrict__ w, float* scratch, float t, int batch,
+                      int tile_chains, Dims d) {
+  TILE_DYNAMIC_SMEM(smem4);
+  constexpr int ROWS = 16 * TM;
+  const int n = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads, I3 = 3 * d.inner;
+  float* gemm_smem = reinterpret_cast<float*>(smem4);  // the products' ring, the attention's units
+  float* xs = gemm_smem + work_smem_floats(ROWS, d.n, d.heads, d.dh);
+  float* dxs = xs + round4(3LL * tile_chains * n);
+  float* mean = dxs + round4(3LL * tile_chains * n);
   const float* h0 = w + d.layers * layer_floats(d);
   const float* wt = h0 + n * C;
   const float* wdec = wt + C;
-  float* chain = scratch + b * d.layers * resid_floats(d);
+  const long long per_layer = resid_floats(d, tile_chains, ROWS);
+  float* mine = scratch + (size_t)blockIdx.x * block_scratch_floats(d, tile_chains, ROWS);
+  const Work Wk = work(mine + d.layers * per_layer, d, ROWS);
+  const int tiles = (batch + tile_chains - 1) / tile_chains;
 
-  // Centre the chain's coordinates.
-  for (int i = threadIdx.x; i < 3 * n; i += NTHREADS) {
-    S.x[i] = x[b * 3 * n + i];
-    S.dx[i] = 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    float s = 0.f;
-    for (int r = 0; r < n; ++r) s += S.x[r * 3 + threadIdx.x];
-    S.row[threadIdx.x] = s / n;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * n; i += NTHREADS) S.x[i] -= S.row[i % 3];
-  for (int i = threadIdx.x; i < n * C; i += NTHREADS) S.hs[i] = h0[i] + t * wt[i % C];
-  __syncthreads();
-
-  // ---------------------------------------------------------------- forward
-  for (int l = 0; l < d.layers; ++l) {
-    const LayerW W = layer_weights(w, d, l);
-    const Resid R = resid(chain + l * resid_floats(d), d);
-    store(R.hin, S.hs, n * C);
-    layer_norm(S.hs, S.hl, W.ln1_g, W.ln1_b, n, C);
-    matmul(S.hl, C, W.wq, W.bq, S.q, I, n, false, nullptr, 0);
-    matmul(S.hl, C, W.wk, W.bk, S.k, I, n, false, nullptr, 0);
-    matmul(S.hl, C, W.wv, W.bv, S.v, I, n, false, nullptr, 0);
-    add_edge_terms(S.x, W.kc, S.k, S.v, S.u, n, I);
-    store(R.q, S.q, n * I);
-    store(R.k, S.k, n * I);
-    store(R.v, S.v, n * I);
-    head_dots(S.q, S.k, S.p, n, H, d.dh, I);
-    for (int row = threadIdx.x; row < H * n; row += NTHREADS) {
-      float* p = S.p + row * n;
-      float m = d.scale * p[0];
-      for (int j = 1; j < n; ++j) m = fmaxf(m, d.scale * p[j]);
-      float s = 0.f;
-      for (int j = 0; j < n; ++j) {
-        p[j] = expf(d.scale * p[j] - m);
-        s += p[j];
+  for (int tile_i = blockIdx.x; tile_i < tiles; tile_i += gridDim.x) {
+    const long long b0 = (long long)tile_i * tile_chains;
+    const int chains = min(tile_chains, (int)(batch - b0));
+    const int real = chains * n;
+    load_centred(x, b0, chains, n, xs, dxs, mean);
+    {
+      float* hin = resid(mine, d, tile_chains, ROWS).hin;
+      for (int i = threadIdx.x; i < ROWS * C; i += NTHREADS) {
+        const int r = i / C, k = i % C;
+        hin[i] = r < real ? __ldg(h0 + (r % n) * C + k) + t * __ldg(wt + k) : 0.f;
       }
-      const float inv = 1.f / s;
-      for (int j = 0; j < n; ++j) p[j] *= inv;
     }
     __syncthreads();
-    store(R.p, S.p, H * n * n);
-    head_mix(S.p, S.v, S.u, n, d.dh, I, false, true);  // u = P v - xc Kc
-    matmul(S.u, I, W.wo, W.bo, S.t1, C, n, false, S.f1, n * F);  // a
-    store(R.a, S.t1, n * C);
-    gate_fwd(S.t1, S.hs, W.ga1, W.gh1, S.row, n, C);
-    store(R.g1, S.row, n);
-    store(R.hmid, S.hs, n * C);
-    layer_norm(S.hs, S.hl, W.ln2_g, W.ln2_b, n, C);
-    matmul(S.hl, C, W.w1, W.b1, S.f1, F, n, false, S.u, n * I);
-    store(R.f1, S.f1, n * F);
-    for (int i = threadIdx.x; i < n * F; i += NTHREADS) S.f1[i] = gelu(S.f1[i]);
-    __syncthreads();
-    matmul(S.f1, F, W.w2, W.b2, S.t1, C, n, false, S.u, n * I);  // f
-    store(R.f, S.t1, n * C);
-    gate_fwd(S.t1, S.hs, W.ga2, W.gh2, S.row, n, C);
-    store(R.g2, S.row, n);
-  }
 
-  // --------------------------------------------------------------- backward
-  for (int i = threadIdx.x; i < n * C; i += NTHREADS) S.dh[i] = wdec[i % C];
-  __syncthreads();
-  for (int l = d.layers - 1; l >= 0; --l) {
-    const LayerW W = layer_weights(w, d, l);
-    const Resid R = resid(chain + l * resid_floats(d), d);
-    // Feed-forward gated residual.
-    store(S.t2, R.hmid, n * C);
-    store(S.t1, R.f, n * C);
-    store(S.row, R.g2, n);
-    gate_bwd(S.t1, S.t2, S.row, W.ga2, W.gh2, S.dh, n, C);  // t1 = df
-    store(S.f1, R.f1, n * F);
-    matmul(S.t1, C, W.w2T, nullptr, S.u, F, n, false, S.q, n * I);  // u = d gelu
-    for (int i = threadIdx.x; i < n * F; i += NTHREADS) S.u[i] *= gelu_grad(S.f1[i]);
-    __syncthreads();
-    matmul(S.u, F, W.w1T, nullptr, S.hl, C, n, false, S.q, n * I);  // d LN2 out
-    layer_norm_bwd(S.t2, S.hl, W.ln2_g, S.dh, n, C);
-    // Attention gated residual.
-    store(S.t2, R.hin, n * C);
-    store(S.t1, R.a, n * C);
-    store(S.row, R.g1, n);
-    gate_bwd(S.t1, S.t2, S.row, W.ga1, W.gh1, S.dh, n, C);  // t1 = da
-    matmul(S.t1, C, W.woT, nullptr, S.u, I, n, false, nullptr, 0);  // u = du = d(P v)
-    edge_terms_bwd(S.u, nullptr, -1.f, W.kc, S.dx, n, I);
-    store(S.q, R.q, n * I);
-    store(S.k, R.k, n * I);
-    store(S.v, R.v, n * I);
-    store(S.p, R.p, H * n * n);
-    head_dots(S.u, S.v, S.ds, n, H, d.dh, I);  // dP
-    for (int row = threadIdx.x; row < H * n; row += NTHREADS) {
-      const float* p = S.p + row * n;
-      float* ds = S.ds + row * n;
-      float tot = 0.f;
-      for (int j = 0; j < n; ++j) tot += p[j] * ds[j];
-      for (int j = 0; j < n; ++j) ds[j] = d.scale * p[j] * (ds[j] - tot);
+    // -------------------------------------------------------------- forward
+    for (int l = 0; l < d.layers; ++l) {
+      const LayerW W = layer_weights(w, d, l);
+      const Resid R = resid(mine + l * per_layer, d, tile_chains, ROWS);
+      // The last layer's output feeds only the energy, which is not returned.
+      float* hnext =
+          l + 1 < d.layers ? resid(mine + (l + 1) * per_layer, d, tile_chains, ROWS).hin : Wk.t1;
+      layer_norm(R.hin, Wk.hl, W.ln1_g, W.ln1_b, ROWS, C);
+      gemm<TM, false>(Wk.hl, C, W.wqkv, W.bqkv, R.qkv, I3, EPI_STORE, nullptr, gemm_smem);
+      attention_fwd(attention(d, W, R, chains, ROWS, xs, dxs), Wk.u, gemm_smem);
+      gemm<TM, true>(Wk.u, I, W.wo, W.bo, R.a, C, EPI_STORE, nullptr, gemm_smem);
+      gate_fwd(R.a, R.hin, W.ga1, W.gh1, R.g1, R.hmid, ROWS, C);
+      layer_norm(R.hmid, Wk.hl, W.ln2_g, W.ln2_b, ROWS, C);
+      gemm<TM, false>(Wk.hl, C, W.w1, W.b1, R.f1, F, EPI_STORE_AND_GELU, Wk.df1, gemm_smem);
+      gemm<TM, true>(Wk.df1, F, W.w2, W.b2, R.f, C, EPI_STORE, nullptr, gemm_smem);
+      gate_fwd(R.f, R.hmid, W.ga2, W.gh2, R.g2, hnext, ROWS, C);
     }
+
+    // ------------------------------------------------------------- backward
+    for (int i = threadIdx.x; i < ROWS * C; i += NTHREADS) Wk.dh[i] = __ldg(wdec + i % C);
     __syncthreads();
-    head_mix(S.p, S.u, S.v, n, d.dh, I, true, false);    // v = dv = P^T du
-    head_mix(S.ds, S.k, S.u, n, d.dh, I, false, false);  // u = dq = dS k
-    head_mix(S.ds, S.q, S.k, n, d.dh, I, true, false);   // k = dk = dS^T q
-    edge_terms_bwd(S.k, S.v, 1.f, W.kc, S.dx, n, I);
-    matmul(S.u, I, W.wqT, nullptr, S.hl, C, n, false, S.f1, n * F);
-    matmul(S.k, I, W.wkT, nullptr, S.hl, C, n, true, S.f1, n * F);
-    matmul(S.v, I, W.wvT, nullptr, S.hl, C, n, true, S.f1, n * F);
-    layer_norm_bwd(S.t2, S.hl, W.ln1_g, S.dh, n, C);
+    for (int l = d.layers - 1; l >= 0; --l) {
+      const LayerW W = layer_weights(w, d, l);
+      const Resid R = resid(mine + l * per_layer, d, tile_chains, ROWS);
+      // Feed-forward gated residual.
+      gate_bwd(R.f, R.hmid, R.g2, W.ga2, W.gh2, Wk.dh, Wk.t1, ROWS, C);  // t1 = df
+      gemm<TM, false>(Wk.t1, C, W.w2T, nullptr, Wk.df1, F, EPI_TIMES_GELU_GRAD, R.f1,
+                      gemm_smem);  // d (pre-activation)
+      gemm<TM, true>(Wk.df1, F, W.w1T, nullptr, Wk.hl, C, EPI_STORE, nullptr,
+                     gemm_smem);  // d LN2 out
+      layer_norm_bwd(R.hmid, Wk.hl, W.ln2_g, Wk.dh, ROWS, C);
+      // Attention gated residual.
+      gate_bwd(R.a, R.hin, R.g1, W.ga1, W.gh1, Wk.dh, Wk.t1, ROWS, C);  // t1 = da
+      gemm<TM, false>(Wk.t1, C, W.woT, nullptr, Wk.du, I, EPI_STORE, nullptr, gemm_smem);
+      three_row_bwd(Wk.du, I, nullptr, 0, -1.f, W.kc, dxs, real, I);
+      attention_bwd(attention(d, W, R, chains, ROWS, xs, dxs), Wk.du, Wk.dqkv, nullptr, nullptr,
+                    gemm_smem);
+      const float *dk = Wk.dqkv + I, *dv = Wk.dqkv + 2 * I;
+      three_row_bwd(dk, I3, dv, I3, 1.f, W.kc, dxs, real, I);
+      gemm<TM, true>(Wk.dqkv, I3, W.wqkvT, nullptr, Wk.hl, C, EPI_STORE, nullptr, gemm_smem);
+      layer_norm_bwd(R.hin, Wk.hl, W.ln1_g, Wk.dh, ROWS, C);
+    }
+    for (int i = threadIdx.x; i < 3 * real; i += NTHREADS) out[b0 * 3 * n + i] = -dxs[i];
+    __syncthreads();
   }
-  for (int i = threadIdx.x; i < 3 * n; i += NTHREADS) out[b * 3 * n + i] = -S.dx[i];
 }
 
 Dims make_dims(int n, int c, int heads, int dh, int ff, int layers) {
@@ -521,6 +259,26 @@ Dims make_dims(int n, int c, int heads, int dh, int ff, int layers) {
   return d;
 }
 
+bool plan_ok(const Dims& d, int batch, int tile_chains, int row_blocks, int blocks) {
+  return d.n >= 1 && d.n <= MAX_N && d.c >= 4 && d.heads >= 1 && d.dh >= 4 && d.ff >= 4
+         && d.layers >= 1 && d.c % 4 == 0 && d.dh % 4 == 0 && d.ff % 4 == 0 && batch >= 1
+         && tile_chains >= 1 && row_blocks >= 1 && row_blocks <= MAX_TM
+         && tile_chains * d.n <= 16 * row_blocks && head_group(d.n, d.heads, d.dh) >= 1
+         && blocks >= 1
+         && blocks <= (batch + tile_chains - 1) / tile_chains;
+}
+
+template <int TM>
+cudaError_t launch(const float* x, float* out, const float* w, float* scratch, float t, int batch,
+                   int tile_chains, int blocks, size_t smem, const Dims& d, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_force_cl_kernel<TM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  TILE_LAUNCH(fused_force_cl_kernel<TM>, blocks, NTHREADS, smem, stream, x, out, w, scratch, t,
+              batch, tile_chains, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -529,31 +287,47 @@ long long fused_force_cl_weight_floats(int n, int c, int heads, int dh, int ff, 
   return weight_floats(make_dims(n, c, heads, dh, ff, layers));
 }
 
-long long fused_force_cl_scratch_floats(int n, int c, int heads, int dh, int ff, int layers) {
-  const Dims d = make_dims(n, c, heads, dh, ff, layers);
-  return d.layers * resid_floats(d);
+// Scratch floats of ONE thread block whose tiles hold `tile_chains` chains in
+// 16 * row_blocks rows.
+long long fused_force_cl_scratch_floats(int n, int c, int heads, int dh, int ff, int layers,
+                                        int tile_chains, int row_blocks) {
+  return block_scratch_floats(make_dims(n, c, heads, dh, ff, layers), tile_chains,
+                              16 * row_blocks);
+}
+
+long long fused_force_cl_smem_bytes(int n, int c, int heads, int dh, int ff, int layers,
+                                    int tile_chains, int row_blocks) {
+  return 4 * smem_floats(make_dims(n, c, heads, dh, ff, layers), tile_chains, 16 * row_blocks);
 }
 
 const char* cudaGetErrorString_port(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches one block per chain on `stream`. Returns a cudaError_t code
-// (0 on success): a refused launch never runs, so the caller must check it.
-int fused_force_cl_launch(const float* x, float* out, const float* w, float* scratch,
-                          float t, int batch, int n, int c, int heads, int dh, int ff,
-                          int layers, void* stream) {
+// Launches `blocks` thread blocks that walk over the tiles of `tile_chains`
+// chains (16 * row_blocks rows each) on `stream`; `scratch` holds blocks *
+// scratch_floats floats. The plan (tile_chains, row_blocks, blocks,
+// scratch_floats, smem_bytes) comes from the caller and is held against this
+// file's own formulas. Returns a cudaError_t code (0 on success): a refused
+// launch never runs, so the caller must check it.
+int fused_force_cl_launch(const float* x, float* out, const float* w, float* scratch, float t,
+                          int batch, int tile_chains, int row_blocks, int blocks,
+                          long long scratch_floats, int smem_bytes, int n, int c, int heads,
+                          int dh, int ff, int layers, void* stream) {
   const Dims d = make_dims(n, c, heads, dh, ff, layers);
-  if (n < 1 || n > MAX_N || c % 4 || dh % 4 || ff % 4 || ff > d.inner || batch < 0)
+  if (!plan_ok(d, batch, tile_chains, row_blocks, blocks)
+      || scratch_floats != block_scratch_floats(d, tile_chains, 16 * row_blocks)
+      || smem_bytes != 4 * smem_floats(d, tile_chains, 16 * row_blocks))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_force_cl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (batch == 0) return 0;
-  fused_force_cl_kernel<<<batch, NTHREADS, smem, (cudaStream_t)stream>>>(x, out, w, scratch,
-                                                                           t, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = (size_t)smem_bytes;
+  switch (row_blocks) {
+    case 1: return (int)launch<1>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
+    case 2: return (int)launch<2>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
+    case 3: return (int)launch<3>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
+    case 4: return (int)launch<4>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
+    default: return (int)launch<5>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
+  }
 }
 
 }  // extern "C"

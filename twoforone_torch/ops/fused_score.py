@@ -45,7 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from twoforone_torch.ops import _build
-from twoforone_torch.utils.device import resolve_device
+from twoforone_torch.ops.tile_plan import plan_tiles
+from twoforone_torch.utils.device import resolve_device, sm_count
 
 # Limits of csrc/fused_score.cu (``fused_force_launch`` refuses the rest):
 # bead count, and widths that are multiples of 4 (16-byte rows).
@@ -56,13 +57,15 @@ def layer_order(intrinsic: bool, distances: bool) -> tuple:
     """Per-layer weight order in the kernel's flat buffer (csrc/fused_score.cu,
     ``layer_weights``). Matrices are (in, out) row-major; the ``*T`` copies
     are their (out, in) transposes, read by the backward's input-gradient
-    products. ``kc`` (3, inner) is there with intrinsic coordinates, ``kd``
-    (inner,) with distances."""
+    products. ``wqkv`` is [wq | wk | wv] (C, 3 inner) with ``bqkv`` its bias,
+    so that the three input projections are one product, and ``wqkvT`` its
+    transpose (the three transposes stacked). ``kc`` (3, inner) is there with
+    intrinsic coordinates, ``kd`` (inner,) with distances."""
     edge = (("kc",) if intrinsic else ()) + (("kd",) if distances else ())
     return (
-        "ln1_g", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", *edge, "wo", "bo",
+        "ln1_g", "ln1_b", "wqkv", "bqkv", *edge, "wo", "bo",
         "ga1", "gh1", "ln2_g", "ln2_b", "w1", "b1", "w2", "b2", "ga2", "gh2",
-        "wqT", "wkT", "wvT", "woT", "w1T", "w2T",
+        "wqkvT", "woT", "w1T", "w2T",
     )
 
 
@@ -195,7 +198,9 @@ def augment_params(model, params, device="cuda", dtype=torch.float32) -> Folded:
             d["kc"] = k_comb[:3]  # (3, inner)
         if distances:
             d["kd"] = k_comb[3 if intrinsic else 0]  # (inner,)
-        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        d["wqkv"] = np.concatenate([d["wq"], d["wk"], d["wv"]], axis=1)
+        d["bqkv"] = np.concatenate([d["bq"], d["bk"], d["bv"]])
+        for name in ("wqkv", "wo", "w1", "w2"):
             d[name + "T"] = d[name].T
         layers.append(d)
 
@@ -208,8 +213,8 @@ def augment_params(model, params, device="cuda", dtype=torch.float32) -> Folded:
     return Folded(
         n=n, c=c, heads=heads, dh=dh, ff=layers[0]["w1"].shape[1],
         intrinsic=intrinsic, distances=distances, abs_coords=abs_coords,
-        layers=[{k: to_t(v).to(dtype) for k, v in d.items() if not k.endswith("T")}
-                for d in layers],
+        layers=[{k: to_t(v).to(dtype) for k, v in d.items()
+                 if not k.endswith("T") and "qkv" not in k} for d in layers],
         glob={k: to_t(v).to(dtype) for k, v in glob.items()},
         flat=to_t(flat),
     )
@@ -299,16 +304,12 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         dims = [ctypes.c_int] * 9
         lib.fused_force_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + dims
-            + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_int] + dims + [ctypes.c_void_p]
         )
         lib.fused_force_launch.restype = ctypes.c_int
         lib.fused_force_weight_floats.argtypes = dims
         lib.fused_force_weight_floats.restype = ctypes.c_longlong
-        lib.fused_force_scratch_floats.argtypes = dims
-        lib.fused_force_scratch_floats.restype = ctypes.c_longlong
-        lib.fused_force_blocks.argtypes = [ctypes.c_int] + dims
-        lib.fused_force_blocks.restype = ctypes.c_int
         lib.fused_force_error_string.argtypes = [ctypes.c_int]
         lib.fused_force_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -327,10 +328,11 @@ def fused_force(x: torch.Tensor, t: float, fw: Folded) -> torch.Tensor:
     tensor it launches the kernel or raises; it never falls back. The
     number of kernel launches is counted in ``fused_force.launches``.
 
-    The kernel runs a fixed number of thread blocks (as many as the card
-    keeps resident, at most one per chain), each walking over its share of
-    the chains with its own scratch for activations and residuals, so the
-    scratch does not grow with the chain count.
+    The kernel runs a fixed grid of thread blocks that walk over tiles of
+    several chains (:func:`twoforone_torch.ops.tile_plan.plan_tiles` picks
+    the tile size from the chain count); each block has its own scratch for
+    activations and residuals, so the scratch does not grow with the chain
+    count. A chain's result does not depend on the batch it arrives in.
     """
     if x.device.type == "cpu":
         return fused_force_reference(x, t, fw)
@@ -359,18 +361,15 @@ def fused_force(x: torch.Tensor, t: float, fw: Folded) -> torch.Tensor:
     out = torch.empty_like(x)
     if bsz == 0:
         return out
-    blocks = lib.fused_force_blocks(bsz, *dims)
-    if blocks <= 0:
-        raise RuntimeError(
-            "fused_force kernel cannot be launched: "
-            f"{lib.fused_force_error_string(-blocks).decode()}"
-        )
-    scratch = torch.empty(blocks * lib.fused_force_scratch_floats(*dims),
-                          dtype=torch.float32, device=x.device)
+    plan = plan_tiles(bsz, fw.n, fw.c, fw.heads, fw.dh, fw.ff, fw.n_layers,
+                      sm_count(x.device.index), distances=fw.distances)
+    scratch = torch.empty(plan.blocks * plan.scratch_floats, dtype=torch.float32,
+                          device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_force_launch(
-        x.data_ptr(), out.data_ptr(), fw.flat.data_ptr(), scratch.data_ptr(),
-        float(t), bsz, blocks, *dims, stream,
+        x.data_ptr(), out.data_ptr(), fw.flat.data_ptr(), scratch.data_ptr(), float(t), bsz,
+        plan.chains_per_tile, plan.row_blocks, plan.blocks, plan.scratch_floats,
+        plan.smem_bytes, *dims, stream,
     )
     if rc != 0:
         raise RuntimeError(

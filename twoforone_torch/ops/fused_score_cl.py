@@ -38,19 +38,26 @@ import torch.nn.functional as F
 
 from twoforone_torch.ops import _build
 from twoforone_torch.ops.attention_cl_core import cl_attention_reference
-from twoforone_torch.utils.device import resolve_device
+from twoforone_torch.ops.tile_plan import plan_tiles
+from twoforone_torch.utils.device import resolve_device, sm_count
 
 # Largest bead count at which the kernel has been held against its plain
 # version on the card; the "auto" force path picks the kernel up to here.
 VERIFIED_MAX_N = 10
 
+# Largest bead count the kernel takes (csrc/fused_score_cl.cu, ``MAX_N``).
+MAX_N = 64
+
 # Per-layer weight order in the kernel's flat buffer (csrc/fused_score_cl.cu,
 # ``layer_weights``). Matrices are (in, out) row-major; the ``*T`` copies are
 # their (out, in) transposes, read by the backward's input-gradient products.
+# ``wqkv`` is [wq | wk | wv] (C, 3 inner) with ``bqkv`` its bias, so that the
+# three input projections are one product, and ``wqkvT`` its transpose (the
+# three transposes stacked).
 _LAYER_ORDER = (
-    "ln1_g", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "kc", "wo", "bo",
+    "ln1_g", "ln1_b", "wqkv", "bqkv", "kc", "wo", "bo",
     "ga1", "gh1", "ln2_g", "ln2_b", "w1", "b1", "w2", "b2", "ga2", "gh2",
-    "wqT", "wkT", "wvT", "woT", "w1T", "w2T",
+    "wqkvT", "woT", "w1T", "w2T",
 )
 _GLOBAL_ORDER = ("h0", "wt", "wdec", "bdec")
 
@@ -68,7 +75,7 @@ class FoldedCL:
     layers: list  # per-layer dicts of tensors
     glob: dict  # h0 (N, C), wt (C,), wdec (C,), bdec (1,)
     flat: torch.Tensor  # kernel layout, 1-D float32
-    scratch_floats: int | None = None  # kernel residuals per chain, set at first launch
+    checked: bool = False  # the flat buffer's size was held against the library
 
     @property
     def inner(self) -> int:
@@ -159,7 +166,9 @@ def augment_params_cl(model, params, device="cuda") -> FoldedCL:
             "w2": f32(ff["fc2"]["kernel"]), "b2": f32(ff["fc2"]["bias"]),
             "ga2": ga2, "gh2": gh2,
         }
-        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        d["wqkv"] = np.concatenate([d["wq"], d["wk"], d["wv"]], axis=1)
+        d["bqkv"] = np.concatenate([d["bq"], d["bk"], d["bv"]])
+        for name in ("wqkv", "wo", "w1", "w2"):
             d[name + "T"] = d[name].T
         layers.append(d)
 
@@ -171,7 +180,8 @@ def augment_params_cl(model, params, device="cuda") -> FoldedCL:
     to_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
     return FoldedCL(
         n=n, c=c, heads=heads, dh=dh, ff=layers[0]["w1"].shape[1],
-        layers=[{k: to_t(v) for k, v in d.items() if not k.endswith("T")} for d in layers],
+        layers=[{k: to_t(v) for k, v in d.items() if not k.endswith("T") and "qkv" not in k}
+                for d in layers],
         glob={k: to_t(v) for k, v in glob.items()},
         flat=to_t(flat),
     )
@@ -239,12 +249,12 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         ints6 = [ctypes.c_int] * 6
         lib.fused_force_cl_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int] + ints6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_int] + ints6 + [ctypes.c_void_p]
         )
         lib.fused_force_cl_launch.restype = ctypes.c_int
-        for fn in ("fused_force_cl_weight_floats", "fused_force_cl_scratch_floats"):
-            getattr(lib, fn).argtypes = ints6
-            getattr(lib, fn).restype = ctypes.c_longlong
+        lib.fused_force_cl_weight_floats.argtypes = ints6
+        lib.fused_force_cl_weight_floats.restype = ctypes.c_longlong
         lib.cudaGetErrorString_port.argtypes = [ctypes.c_int]
         lib.cudaGetErrorString_port.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -261,6 +271,12 @@ def fused_force_cl(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
     On a CPU tensor this runs :func:`fused_force_cl_reference`. On a CUDA
     tensor it launches the kernel or raises; it never falls back. The
     number of kernel launches is counted in ``fused_force_cl.launches``.
+
+    The kernel runs a fixed grid of thread blocks that walk over tiles of
+    several chains (:func:`twoforone_torch.ops.tile_plan.plan_tiles` picks
+    the tile size from the chain count); each block has its own scratch for
+    activations and residuals, so the scratch does not grow with the chain
+    count. A chain's result does not depend on the batch it arrives in.
     """
     if x.device.type == "cpu":
         return fused_force_cl_reference(x, t, fw)
@@ -272,19 +288,30 @@ def fused_force_cl(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
         )
     if fw.flat.device != x.device:
         raise ValueError(f"weights on {fw.flat.device}, coordinates on {x.device}")
+    if fw.n > MAX_N or fw.c % 4 or fw.dh % 4 or fw.ff % 4:
+        raise ValueError(
+            f"the fused force kernel takes at most {MAX_N} beads and hidden, head and "
+            f"feed-forward widths that are multiples of 4; got N={fw.n}, C={fw.c}, "
+            f"dh={fw.dh}, F={fw.ff}"
+        )
     lib = _lib()
-    if fw.scratch_floats is None:
+    if not fw.checked:
         if lib.fused_force_cl_weight_floats(*_dims(fw)) != fw.flat.numel():
             raise RuntimeError("folded weight buffer does not match the kernel's layout")
-        fw.scratch_floats = lib.fused_force_cl_scratch_floats(*_dims(fw))
+        fw.checked = True
     x = x.contiguous()
     bsz = x.shape[0]
     out = torch.empty_like(x)
-    scratch = torch.empty(bsz * fw.scratch_floats, dtype=torch.float32, device=x.device)
+    if bsz == 0:
+        return out
+    plan = plan_tiles(bsz, *_dims(fw), sm_count(x.device.index))
+    scratch = torch.empty(plan.blocks * plan.scratch_floats, dtype=torch.float32,
+                          device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_force_cl_launch(
-        x.data_ptr(), out.data_ptr(), fw.flat.data_ptr(), scratch.data_ptr(),
-        float(t), bsz, *_dims(fw), stream,
+        x.data_ptr(), out.data_ptr(), fw.flat.data_ptr(), scratch.data_ptr(), float(t), bsz,
+        plan.chains_per_tile, plan.row_blocks, plan.blocks, plan.scratch_floats,
+        plan.smem_bytes, *_dims(fw), stream,
     )
     if rc != 0:
         raise RuntimeError(

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -19,3 +21,10 @@ def resolve_device(device="cuda") -> torch.device:
             "to run the plain PyTorch path on the host"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a card: the grid of a kernel that keeps a
+    fixed number of thread blocks resident follows it."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
