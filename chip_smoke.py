@@ -10,9 +10,11 @@ models, with bench.py's settings:
   1000 chains (the fused force kernel), and i.i.d. sampling through
   ``make_fused_sample_fn`` (DDIM-100 at batch 4096, the 1000-step ancestral
   chain at batch 1024);
-- trp-cage (N=20, nf=128, chain20 weights, t=15): Langevin at 1000 chains
-  (the attention-core kernel pair inside an eager energy) beside the plain
-  path, and DDIM-100 sampling at batch 1024;
+- trp-cage (N=20, nf=128, chain20 weights, t=15) and BBA (N=28, nf=96,
+  chain28 weights, t=15): Langevin at 1000 chains on the attention-core path
+  (the kernel pair inside an energy that is captured in a CUDA graph) beside
+  the plain path and the whole-force kernel; trp-cage DDIM-100 sampling at
+  batch 1024;
 - the fused force kernel for every edge configuration: chignolin Langevin
   through ``LangevinDiffusion(fused="always")`` at 100 and 1000 chains, and
   DDIM-100 at batch 1024 through ``make_fused_sample_fn(kernel="auto")`` on
@@ -26,15 +28,20 @@ Phases (any failure exits non-zero):
    runs started together; set-up time); print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the paths give it, and time both; for the two whole-force kernels
-   also ragged tiles (chain counts around the tile size), a chain's result
-   alone against the same chain in a large batch, two calls bit for bit,
-   times beside the earlier design's, and the compiler's registers and spills;
+   also ragged tiles (chain counts around the tile size); for every kernel a
+   chain's result alone against the same chain in a large batch and two calls
+   bit for bit; the attention-core kernels beside their earlier design's
+   times and one library call (scaled_dot_product_attention on augmented
+   operands); the clx force evaluation graphed against eager (bits, t across
+   replays, launches per evaluation, ms) and beside the whole-force kernel;
+   the compiler's registers and spills;
 3. chignolin Langevin with the launch counters set to 0 just before and read
    just after; counts, finiteness, steps/s;
 4. 10 chignolin steps with the same injected noise through the kernel path
    and the plain path;
-5. trp-cage Langevin likewise (counts, steps/s on the kernel path and on the
-   plain path, 10-step comparison);
+5. trp-cage and BBA Langevin likewise, each on the graphed clx path, the
+   plain path and the whole-force kernel (counts, steps/s, 10-step comparison
+   of clx with the plain path);
 6. i.i.d. sampling likewise (resolved kernel, counts, finiteness, centre of
    mass, spread of the samples, samples/s, DDIM-20 against the plain path);
 7. chignolin Langevin through ``fused="always"`` (counts, finiteness,
@@ -96,9 +103,9 @@ EDGES = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=Fals
 # The upstream default: squared distances on the edges, absolute coordinates
 # in the node features, no intrinsic coordinates.
 DEFAULT_EDGES = dict(use_intrinsic_coords=False, use_abs_coords=True, use_distances=True)
-CHIGNOLIN = dict(name="chain10", n=10, nf=64, norm=3.113133430480957, temp=340, t_noise=20)
-TRP_CAGE = dict(name="chain20", n=20, nf=128, norm=5.08211088180542, temp=290, t_noise=15)
-BBA = dict(name="chain28", n=28, nf=96, norm=6.294918537139893, temp=325, t_noise=15)
+CHIGNOLIN = dict(name="chain10", label="chignolin", n=10, nf=64, norm=3.113133430480957, temp=340, t_noise=20)
+TRP_CAGE = dict(name="chain20", label="trp_cage", n=20, nf=128, norm=5.08211088180542, temp=290, t_noise=15)
+BBA = dict(name="chain28", label="bba", n=28, nf=96, norm=6.294918537139893, temp=325, t_noise=15)
 
 CHAINS = (100, 1000)
 WARMUP_STEPS = 100
@@ -123,23 +130,24 @@ TILE_AROUND = 1000
 RAGGED_CHAINS = (1, 257)
 ALONE_CHAINS = (1, 3, 100, 1000)  # x[:k] alone against the same chains in the largest batch
 TOL_ALONE_REL = 1e-6  # where the tile size differs; the same tile size must give the same bits
-# The one-chain-per-block kernels these replaced, as PERF.md records them: this
-# script on an NVIDIA H100 80GB HBM3 at 700.00 W (ms by chain count).
-EARLIER_MS = {
-    "fused_force_cl": {100: 1.1063, 1000: 5.2606, 4096: 21.3375},
-    "fused_force": {"chain10_100": 1.3486, "chain10_1000": 6.2071, "default_edges_1024": 6.4658},
-}
-# Rates of the same run (steps/s, samples/s).
-EARLIER_RATES = {
-    "chignolin_chains_100": 832.93, "chignolin_chains_1000": 187.76,
-    "chignolin_chains_100_always": 711.68, "chignolin_chains_1000_always": 160.66,
-    "chignolin_ddim100_b4096": 1917.40, "chignolin_ancestral1000_b1024": 191.99,
-    "default_edges_ddim100_b1024": 1558.98,
-}
 # (N, B) of the attention-core checks: trp-cage at every chain count of its
 # paths, BBA, and a ragged case.
 CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATCH})),
                (28, 256), (11, 3))
+# Chain counts at which K2 and K3 are timed at trp-cage width: where the path
+# gate starts sending chains to the attention core, and the Langevin runs'.
+CORE_TIMED_CHAINS = (AGREE_BATCH, TRP_CHAINS)
+# The one-(chain, head)-per-block attention-core kernels these replaced, as
+# PERF.md records them (NVIDIA H100 80GB HBM3, 700.00 W), in ms at trp-cage
+# width: at 1000 chains this script's back-to-back time from Python, at 256
+# chains the device time that scripts/torch_core_bench.py read on a checkout
+# of that design (the faster of two runs). Neither kernel may be slower.
+EARLIER_CORE_MS = {TRP_CHAINS: ("ms", {"fwd": 0.1905, "bwd": 0.4081}),
+                   AGREE_BATCH: ("device_ms", {"fwd": 0.0580, "bwd": 0.1156})}
+# The graphed clx evaluation against the eager one: the same kernels in the
+# same order give the same bits unless cuBLAS picks another algorithm under
+# capture; then within this, relative to the largest force.
+TOL_GRAPH_REL = 1e-6
 # The fused force kernel for every edge configuration (K4).
 K4_TIMED_STEPS = 500
 K4_DDIM_BATCH = 1024
@@ -207,12 +215,59 @@ def fused_force_flops(fw, chains, intrinsic=True, distances=False, abs_coords=Fa
 
 def core_work(b, n, h, dh):
     """(flops, bytes) of the attention core's forward and backward: each
-    input read once, each output written once (x is shared by the heads)."""
+    input read once, each output written once (x and dx, summed over heads,
+    are shared by the heads)."""
     fwd = (b * h * (4 * n * n * dh + 12 * n * n),
            4 * (b * h * (4 * n * dh + 7 * n) + b * 3 * n))
     bwd = (b * h * (10 * n * n * dh + 30 * n * n),
-           4 * (b * h * (7 * n * dh + 14 * n) + b * 3 * n))
+           4 * (b * h * (7 * n * dh + 11 * n) + b * 6 * n))
     return fwd, bwd
+
+
+def core_inputs(n, b, dev):
+    """Seeded inputs of the attention core at n beads, b chains and 8 x 64
+    heads: ``(q, k, v, x, qb, qkd), dout, dfd``."""
+    q, k, v, dout = (normal(40 + i, (b, n, HEADS, DH), dev) for i in range(4))
+    x, qb = normal(44, (b, n, 3), dev), normal(45, (b, HEADS, n), dev)
+    qkd, dfd = (0.3 * normal(46 + i, (b, HEADS, n, 3), dev) for i in range(2))
+    return (q, k, v, x, qb, qkd), dout, dfd
+
+
+def core_times(acc, ins, dout, dfd, reps=50, graph_reps=20):
+    """ms of K2 and K3 through the wrappers of module ``acc``: ``ms`` over
+    back-to-back calls from Python, as a caller sees them, and ``device_ms``
+    over the same calls replayed from a CUDA graph, the card's time alone
+    (the least of three replays)."""
+    calls = {"fwd": lambda: acc.cl_attention_fwd(*ins),
+             "bwd": lambda: acc.cl_attention_bwd(*ins, dout, dfd)}
+    times = {}
+    for which, call in calls.items():
+        ms = cuda_time_ms(call, reps)  # its first call is the warm-up a capture needs
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(graph_reps):
+                call()
+        device_ms = min(cuda_time_ms(graph.replay, 5) for _ in range(3)) / graph_reps
+        times[which] = dict(ms=ms, device_ms=device_ms)
+        del graph
+    return times
+
+
+def sdpa_operands(q, k, v, x, qb, qkd):
+    """Augmented operands (B, H, N, dh + 8) on which one call of
+    ``scaled_dot_product_attention`` computes the attention core:
+    q'_i = [q_i, qkd_i, qb_i - qkd_i . x_i], k'_j = [k_j, x_j, 1],
+    v'_j = [v_j, x_j], zero-padded; out = out'[:dh], fdiff = out'[dh:dh+3] - x_i."""
+    b, n, h, dh = q.shape
+    xh = x[:, None].expand(b, h, n, 3)
+    qp, kp, vp = (torch.zeros(b, h, n, dh + 8, device=q.device) for _ in range(3))
+    qp[..., :dh], kp[..., :dh], vp[..., :dh] = (a.transpose(1, 2) for a in (q, k, v))
+    qp[..., dh:dh + 3] = qkd
+    qp[..., dh + 3] = qb - (qkd * xh).sum(-1)
+    kp[..., dh:dh + 3] = xh
+    kp[..., dh + 3] = 1.0
+    vp[..., dh:dh + 3] = xh
+    return qp, kp, vp
 
 
 def make_gd(spec, edges=EDGES):
@@ -398,11 +453,9 @@ def main():
         bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + fw.flat.numel()))
         plan = plan_tiles(chains, *k1_dims, sms)
         scratch_bytes = scratch_traffic_bytes(fw, chains)
-        earlier = EARLIER_MS["fused_force_cl"][chains]
         timing[chains] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                              flops=flops, earlier_design_ms=earlier)
+                              flops=flops)
         log(f"phase2 timing fused_force_cl chains={chains} kernel_ms={ms:.4f} "
-            f"(earlier design {earlier}, PERF.md) "
             f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} bound_by={bound_by} "
             f"residual_traffic_mb={scratch_bytes / 1e6:.1f} "
             f"residual_traffic_ms_at_hbm_rate={scratch_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
@@ -410,9 +463,6 @@ def main():
             f"(L2 {L2_BYTES / 1e6:.0f} MB) gflop={flops / 1e9:.3f} "
             f"achieved_tflops={flops / ms / 1e9:.3f} rel_err_vs_plain_f64: "
             f"kernel={rel['kernel']:.2e} plain_f32={rel['plain_f32']:.2e}")
-    if timing[1000]["ms"] >= EARLIER_MS["fused_force_cl"][1000] \
-            or timing[100]["ms"] > EARLIER_MS["fused_force_cl"][100]:
-        fail("phase2: fused_force_cl is slower than the design it replaced")
 
     # K2 and K3, the attention core's forward and backward.
     core_err = {"fwd": 0.0, "bwd": 0.0}
@@ -449,6 +499,23 @@ def main():
                 fail(f"phase2: cl_attention_{which} disagrees with its plain version "
                      "or does not repeat bit for bit")
             core_err[which] = max(core_err[which], max(errs))
+        if b == max(bb for nn, bb in CORE_SHAPES if nn == n):
+            # A chain's results do not depend on the batch (nor on the grid,
+            # which follows the batch): x[:k] alone against the same chains
+            # inside the largest batch of this N.
+            for kk in sorted({c for c in (*ALONE_CHAINS, b // 2) if c < b}):
+                part = [a[:kk].contiguous() for a in (*ins, dout, dfd)]
+                alone = {"fwd": acc.cl_attention_fwd(*part[:6]),
+                         "bwd": acc.cl_attention_bwd(*part)}
+                torch.cuda.synchronize()
+                for which in ("fwd", "bwd"):
+                    whole = [g[:kk] for g in got[which]]
+                    same = all(torch.equal(a, w) for a, w in zip(alone[which], whole))
+                    log(f"phase2 cl_attention_{which} alone chains={kk} of {b} N={n}: "
+                        f"same_bits={same} ok={same}")
+                    if not same:
+                        fail(f"phase2: a chain's cl_attention_{which} result depends on the "
+                             "batch it arrives in")
 
     # The whole clx force evaluation against the same energy with the plain core.
     for spec in (TRP_CAGE, BBA):
@@ -458,8 +525,11 @@ def main():
         t_fixed = spec["t_noise"] / 1000
         fixed = make_clx_force_fn(model, weights, t_fixed, dev)
         runtime = make_clx_force_fn(model, weights, None, dev)
-        cases = (("fixed", t_fixed, fixed(x)),
-                 ("runtime", 0.37, runtime(x, torch.tensor(0.37, device=dev))))
+        # The first call of a shape is the eager warm-up, the second a replay
+        # of its graph.
+        cases = (("fixed capture", t_fixed, fixed(x)), ("fixed replay", t_fixed, fixed(x)),
+                 ("runtime capture", 0.37, runtime(x, torch.tensor(0.37, device=dev))),
+                 ("runtime replay", 0.05, runtime(x, torch.tensor(0.05, device=dev))))
         for label, t, out in cases:
             ref = fcl.fused_force_cl_reference(x, t, fixed.folded)
             torch.cuda.synchronize()
@@ -471,26 +541,69 @@ def main():
             if not ok:
                 fail("phase2: the clx force path disagrees with its plain version")
 
-    n, b = TRP_CAGE["n"], TRP_CHAINS
-    q, k, v, dout = (normal(40 + i, (b, n, HEADS, DH), dev) for i in range(4))
-    x, qb = normal(44, (b, n, 3), dev), normal(45, (b, HEADS, n), dev)
-    qkd, dfd = (0.3 * normal(46 + i, (b, HEADS, n, 3), dev) for i in range(2))
-    ins = (q, k, v, x, qb, qkd)
-    work = dict(zip(("fwd", "bwd"), core_work(b, n, HEADS, DH)))
-    core_timing = {
-        "fwd": dict(ms=cuda_time_ms(lambda: acc.cl_attention_fwd(*ins), 50),
-                    plain_ms=cuda_time_ms(lambda: acc.cl_attention_reference(*ins), PLAIN_REPS)),
-        "bwd": dict(ms=cuda_time_ms(lambda: acc.cl_attention_bwd(*ins, dout, dfd), 50),
-                    plain_ms=cuda_time_ms(
-                        lambda: acc.cl_attention_bwd_reference(*ins, dout, dfd), PLAIN_REPS)),
-    }
-    for which, tm in core_timing.items():
-        flops, nbytes = work[which]
-        tm["bound_ms"], tm["bound_by"] = bound(flops, nbytes)
-        log(f"phase2 timing cl_attention_{which} N={n} B={b} kernel_ms={tm['ms']:.4f} "
-            f"plain_ms={tm['plain_ms']:.4f} bound_ms={tm['bound_ms']:.4f} "
-            f"bound_by={tm['bound_by']} gflop={flops / 1e9:.3f} mbytes={nbytes / 1e6:.1f} "
-            f"achieved_gb_per_s={nbytes / tm['ms'] / 1e6:.1f}")
+    # K2 and K3 timed at trp-cage width, beside their plain versions and one
+    # library call at the Langevin runs' chain count.
+    n = TRP_CAGE["n"]
+    core_timing = {b: core_times(acc, *core_inputs(n, b, dev)) for b in CORE_TIMED_CHAINS}
+    main_core = core_timing[TRP_CHAINS]
+    ins, dout, dfd = core_inputs(n, TRP_CHAINS, dev)
+    x = ins[3]
+    main_core["fwd"]["plain_ms"] = cuda_time_ms(lambda: acc.cl_attention_reference(*ins),
+                                                PLAIN_REPS)
+    main_core["bwd"]["plain_ms"] = cuda_time_ms(
+        lambda: acc.cl_attention_bwd_reference(*ins, dout, dfd), PLAIN_REPS)
+    # The library yardstick: one call of scaled_dot_product_attention in the
+    # memory-efficient backend at float32 on augmented operands (built
+    # beforehand, not timed) computes the forward; the backward of that call
+    # alone, the backward. Held once against the plain versions first.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    scale = DH ** -0.5
+    ops = sdpa_operands(*ins)
+    leaves = [a.clone().requires_grad_(True) for a in ops]
+    dout_p = torch.zeros_like(ops[0])
+    dout_p[..., :DH] = dout.transpose(1, 2)
+    dout_p[..., DH:DH + 3] = dfd
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with torch.no_grad():
+            out_p = sdpa(*ops, scale=scale)
+        out_g = sdpa(*leaves, scale=scale)
+        grads_p = torch.autograd.grad(out_g, leaves, dout_p, retain_graph=True)
+        ref_out, ref_fd = acc.cl_attention_reference(*ins)
+        ref_g = acc.cl_attention_bwd_reference(*ins, dout, dfd)
+        pairs = (("out", out_p[..., :DH].transpose(1, 2), ref_out),
+                 ("fdiff", out_p[..., DH:DH + 3] - x[:, None], ref_fd),
+                 *((name, g[..., :DH].transpose(1, 2), r)
+                   for name, g, r in zip(("dq", "dk", "dv"), grads_p, ref_g[:3])))
+        for name, got_p, r in pairs:
+            rel = ((got_p - r).abs().max() / r.abs().max()).item()
+            log(f"phase2 sdpa yardstick {name} vs plain max_rel_err={rel:.3e} tol_rel={TOL_REL}")
+            if not rel <= TOL_REL:
+                fail("phase2: the SDPA yardstick does not compute the attention core")
+        with torch.no_grad():
+            main_core["fwd"]["library_ms"] = cuda_time_ms(lambda: sdpa(*ops, scale=scale), 50)
+        main_core["bwd"]["library_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(out_g, leaves, dout_p, retain_graph=True), 50)
+    del out_g, grads_p, leaves
+    for b, times in core_timing.items():
+        work = dict(zip(("fwd", "bwd"), core_work(b, n, HEADS, DH)))
+        for which, tm in times.items():
+            flops, nbytes = work[which]
+            tm["bound_ms"], tm["bound_by"] = bound(flops, nbytes)
+            extra = "".join(f" {key}={tm[key]:.4f}" for key in ("plain_ms", "library_ms")
+                            if key in tm)
+            kind, earlier = EARLIER_CORE_MS.get(b, (None, {}))
+            note = f" (earlier design {kind}={earlier[which]}, PERF.md)" if kind else ""
+            log(f"phase2 timing cl_attention_{which} N={n} B={b} kernel_ms={tm['ms']:.4f} "
+                f"device_ms={tm['device_ms']:.4f}{note}{extra} "
+                f"bound_ms={tm['bound_ms']:.4f} bound_by={tm['bound_by']} "
+                f"share_of_bound={tm['bound_ms'] / tm['device_ms']:.3f} "
+                f"gflop={flops / 1e9:.3f} mbytes={nbytes / 1e6:.1f} "
+                f"achieved_gb_per_s={nbytes / tm['device_ms'] / 1e6:.1f}")
+            if kind and tm[kind] > earlier[which]:
+                fail(f"phase2: cl_attention_{which} is slower than the design it replaced "
+                     f"at {b} chains")
 
     # K4, the fused force kernel for every edge configuration, against its
     # plain version in float64 (see TOL_F32_FACTOR).
@@ -588,35 +701,60 @@ def main():
         flops = fused_force_flops(f, chains, f.intrinsic, f.distances, f.abs_coords)
         bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + fixed.folded.flat.numel()))
         scratch_bytes = scratch_traffic_bytes(f, chains, f.distances)
-        earlier = EARLIER_MS["fused_force"].get(label)
         k4_timing[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                flops=flops, earlier_design_ms=earlier)
-        log(f"phase2 timing fused_force {label} kernel_ms={ms:.4f} "
-            f"(earlier design {earlier}, PERF.md) plain_ms={plain_ms:.4f} "
+                                flops=flops)
+        log(f"phase2 timing fused_force {label} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
             f"residual_traffic_ms_at_hbm_rate={scratch_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
             f"gflop={flops / 1e9:.3f} achieved_tflops={flops / ms / 1e9:.3f}")
-        if earlier is not None and ms > earlier:
-            fail("phase2: fused_force is slower than the design it replaced")
-    # The two staged proteins of the attention-core path: the whole-force
-    # kernel beside the clx force evaluation that the path gate picks there.
+    # The two staged proteins of the attention-core path: the clx force
+    # evaluation that the path gate picks there, graphed against eager (bits,
+    # t across replays, launches per evaluation), and beside the whole-force
+    # kernel.
     for spec in (TRP_CAGE, BBA):
         model, weights = make_gd(spec).model, load_ema_params(spec["name"])
         t_fixed = spec["t_noise"] / 1000
         packed = fsc.make_fused_force_kernel(model, weights, t_fixed, dev)
         clx = make_clx_force_fn(model, weights, t_fixed, dev)
+        clx_eager = make_clx_force_fn(model, weights, t_fixed, dev, graphed=False)
+        runtime = make_clx_force_fn(model, weights, None, dev)
+        runtime_eager = make_clx_force_fn(model, weights, None, dev, graphed=False)
         x = normal(8, (TRP_CHAINS, spec["n"], 3), dev)
+        clx(x)  # capture
+        reset_counts()
+        replay = clx(x)
+        per_eval = counts()
+        cases = [("fixed", t_fixed, replay, clx_eager(x))]
+        runtime(x, 0.37)  # capture
+        for t in (0.05, 0.37, 0.6):
+            cases.append(("runtime", t, runtime(x, torch.tensor(t, device=dev)),
+                          runtime_eager(x, t)))
+        torch.cuda.synchronize()
+        for label, t, got, ref in cases:
+            same_bits = torch.equal(got, ref)
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            ok = (same_bits or rel <= TOL_GRAPH_REL) and per_eval == (0, 3, 3, 0)
+            log(f"phase2 clx graphed vs eager {spec['name']} chains={TRP_CHAINS} t={label}:{t} "
+                f"same_bits={same_bits} max_rel_diff={rel:.3e} tol_rel={TOL_GRAPH_REL} "
+                f"launches_per_eval_k1_fwd_bwd_k4={per_eval} ok={ok}")
+            if not ok:
+                fail("phase2: the graphed clx evaluation disagrees with the eager one, or "
+                     "counts other launches than 3 of K2 and 3 of K3")
         ms = cuda_time_ms(lambda: packed(x), 20)
         clx_ms = cuda_time_ms(lambda: clx(x), 20)
+        eager_ms = cuda_time_ms(lambda: clx_eager(x), 20)
         f = packed.folded
         flops = fused_force_flops(f, TRP_CHAINS)
         plan = plan_tiles(TRP_CHAINS, f.n, f.c, f.heads, f.dh, f.ff, f.n_layers, sms)
-        k4_timing[f"{spec['name']}_{TRP_CHAINS}"] = dict(ms=ms, clx_force_ms=clx_ms, flops=flops)
+        k4_timing[f"{spec['name']}_{TRP_CHAINS}"] = dict(
+            ms=ms, clx_force_ms=clx_ms, clx_eager_force_ms=eager_ms, flops=flops)
         log(f"phase2 timing fused_force {spec['name']} N={spec['n']} C={spec['nf']} "
             f"chains={TRP_CHAINS} chains_per_tile={plan.chains_per_tile} rows={plan.rows} "
-            f"kernel_ms={ms:.4f} clx_force_ms={clx_ms:.4f} "
+            f"kernel_ms={ms:.4f} clx_force_ms={clx_ms:.4f} (graphed) "
+            f"clx_eager_force_ms={eager_ms:.4f} "
             f"bound_ms={flops / PEAK_FP32_FLOPS * 1e3:.4f} gflop={flops / 1e9:.3f} "
             f"achieved_tflops={flops / ms / 1e9:.3f}")
+        del clx, clx_eager, runtime, runtime_eager
 
     launches = {"k1": 0, "fwd": 0, "bwd": 0, "k4": 0}
 
@@ -638,7 +776,6 @@ def main():
         sps[chains], finite = timed_run(ld, WARMUP_STEPS, TIMED_STEPS)
         k1, fwd, bwd, k4 = add_counts()
         log(f"phase3 chignolin chains={chains} steps_per_s={sps[chains]:.2f} "
-            f"(earlier design {EARLIER_RATES[f'chignolin_chains_{chains}']}, PERF.md) "
             f"launches={k1} steps={WARMUP_STEPS + TIMED_STEPS} finite={finite}")
         if k1 != WARMUP_STEPS + TIMED_STEPS or fwd or bwd or k4 or not finite:
             fail("phase3: kernel launches != steps, or non-finite coordinates")
@@ -651,32 +788,47 @@ def main():
     mark("phase4")
 
     # ---------------------------------------------------------- phase 5
-    ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "auto", 10_000_000,
-                  WARMUP_STEPS, dev)
-    if ld.force_fn.mode != "clx":
-        fail(f"phase5: fused='auto' resolved to {ld.force_fn.mode!r}")
-    reset_counts()
-    trp_sps, finite = timed_run(ld, WARMUP_STEPS, TRP_TIMED_STEPS)
-    k1, fwd, bwd, k4 = add_counts()
-    steps = WARMUP_STEPS + TRP_TIMED_STEPS
-    log(f"phase5 trp_cage chains={TRP_CHAINS} mode=clx steps_per_s={trp_sps:.2f} "
-        f"launches_fwd={fwd} launches_bwd={bwd} steps={steps} finite={finite}")
-    if fwd != 3 * steps or bwd != 3 * steps or k1 or k4 or not finite:
-        fail("phase5: attention-core launches != 3 x steps, or non-finite coordinates")
-    ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "never", 10_000_000, 20, dev)
-    reset_counts()
-    trp_plain_sps, finite = timed_run(ld, 20, TRP_PLAIN_STEPS)
-    if any(counts()) or not finite:
-        fail("phase5: the plain path launched a kernel, or non-finite coordinates")
-    step_ms = 1e3 / trp_sps
-    core_ms = 3 * (core_timing["fwd"]["ms"] + core_timing["bwd"]["ms"])
-    log("trp_cage_step " + json.dumps({
-        "chains": TRP_CHAINS, "steps_per_s_clx": trp_sps, "steps_per_s_never": trp_plain_sps,
-        "clx_over_never": trp_sps / trp_plain_sps, "step_ms_clx": step_ms,
-        "attention_core_ms_per_step": core_ms, "attention_core_share": core_ms / step_ms,
-        "rest_of_step_ms": step_ms - core_ms,
-    }))
+    # trp-cage and BBA Langevin at 1000 chains: fused="auto" (the graphed clx
+    # evaluation) beside the plain path ("never") and the whole-force kernel
+    # K4 ("always").
+    gd_bba, params_bba = make_gd(BBA), load_ema_params(BBA["name"])
+    protein_sps = {}
+    for spec, g, weights in ((TRP_CAGE, gd_trp, params_trp), (BBA, gd_bba, params_bba)):
+        name = spec["label"]
+        for fused, warmup, timed, want in (
+                ("auto", WARMUP_STEPS, TRP_TIMED_STEPS, lambda s: (0, 3 * s, 3 * s, 0)),
+                ("never", 20, TRP_PLAIN_STEPS, lambda s: (0, 0, 0, 0)),
+                ("always", WARMUP_STEPS, TRP_TIMED_STEPS, lambda s: (0, 0, 0, s))):
+            ld = make_sim(g, weights, spec, TRP_CHAINS, fused, 10_000_000, warmup, dev)
+            mode = ld.force_fn.mode
+            if fused == "auto" and mode != "clx":
+                fail(f"phase5: {name} fused='auto' resolved to {mode!r}")
+            reset_counts()
+            rate, finite = timed_run(ld, warmup, timed)
+            got = add_counts()
+            steps = warmup + timed
+            protein_sps[name, mode] = rate
+            ok = finite and got == want(steps)
+            log(f"phase5 {name} N={spec['n']} chains={TRP_CHAINS} mode={mode} "
+                f"steps_per_s={rate:.2f} steps={steps} launches_k1_fwd_bwd_k4={got} "
+                f"finite={finite} ok={ok}")
+            if not ok:
+                fail(f"phase5: {name} {mode}: wrong launch counts or non-finite coordinates")
+            del ld
+        rate = {m: protein_sps[name, m] for m in ("clx", "never", "always")}
+        step = {"chains": TRP_CHAINS, **{f"steps_per_s_{m}": r for m, r in rate.items()},
+                "clx_over_never": rate["clx"] / rate["never"],
+                "clx_over_always": rate["clx"] / rate["always"],
+                "step_ms_clx": 1e3 / rate["clx"],
+                "clx_force_ms": k4_timing[f"{spec['name']}_{TRP_CHAINS}"]["clx_force_ms"]}
+        if spec is TRP_CAGE:
+            core_ms = 3 * sum(main_core[w]["ms"] for w in ("fwd", "bwd"))
+            step.update(attention_core_ms_per_step=core_ms,
+                        attention_core_share=core_ms / step["step_ms_clx"],
+                        rest_of_step_ms=step["step_ms_clx"] - core_ms)
+        log(f"{name}_step " + json.dumps(step))
     ten_steps_agree("phase5 trp_cage", gd_trp, params_trp, TRP_CAGE, AGREE_BATCH, "clx", dev)
+    ten_steps_agree("phase5 bba", gd_bba, params_bba, BBA, AGREE_BATCH, "clx", dev)
 
     mark("phase5")
 
@@ -710,7 +862,6 @@ def main():
               and (not trained or 0.5 <= std_ratio <= 2.0)
               and tuple(out.shape) == (batch, spec["n"], 3))
         log(f"{phase} {label} kernel={fn.kernel} samples_per_s={samples_per_s[label]:.2f} "
-            f"(earlier design {EARLIER_RATES.get(label, 'unchanged code')}, PERF.md) "
             f"seconds={elapsed:.3f} score_calls={calls} launches_k1_fwd_bwd_k4={got} "
             f"finite={finite} max_com_over_norm={com:.2e} std_over_norm={std_ratio:.3f} ok={ok}")
         if not ok:
@@ -772,8 +923,7 @@ def main():
         k1, fwd, bwd, k4 = add_counts()
         steps = WARMUP_STEPS + K4_TIMED_STEPS
         log(f"phase7 chignolin fused=always chains={chains} steps_per_s={k4_sps[chains]:.2f} "
-            f"(earlier design {EARLIER_RATES[f'chignolin_chains_{chains}_always']}, PERF.md; "
-            f"fused=auto, the cl kernel: {sps[chains]:.2f}) launches={k4} "
+            f"(fused=auto, the cl kernel: {sps[chains]:.2f}) launches={k4} "
             f"launches_fused_force_cl={k1} steps={steps} finite={finite}")
         if k4 != steps or k1 or fwd or bwd or not finite:
             fail("phase7: kernel launches != steps, another kernel ran, or non-finite "
@@ -834,8 +984,8 @@ def main():
     mark("phase8")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
-        f"trp_cage_chains_{TRP_CHAINS}_clx": trp_sps,
-        f"trp_cage_chains_{TRP_CHAINS}_never": trp_plain_sps,
+        **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
+           for (name, mode), rate in protein_sps.items()},
         **{f"chignolin_chains_{c}_always": k4_sps[c] for c in CHAINS},
     }))
     log("samples_per_s " + json.dumps(samples_per_s))
@@ -857,7 +1007,7 @@ def main():
         "library_ms": None,
     }]
     for which, line in (("fwd", 175), ("bwd", 199)):
-        tm = core_timing[which]
+        tm = main_core[which]
         kernels.append({
             "name": f"cl_attention_{which}",
             "route": "cuda",
@@ -869,7 +1019,7 @@ def main():
             "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"],
-            "library_ms": None,
+            "library_ms": tm["library_ms"],
         })
     main_k4 = k4_timing["chain10_1000"]
     kernels.append({

@@ -1,6 +1,6 @@
 """Where a Langevin step of the PyTorch/CUDA port spends its time on the GPU.
 
-    python3 scripts/torch_profile_langevin.py [trp_cage|chignolin] [chains] [steps]
+    python3 scripts/torch_profile_langevin.py [trp_cage|bba|chignolin] [chains] [steps]
 
 Runs the port's ``LangevinDiffusion`` (``fused="auto"``, bench.py's settings, the
 staged trained weights) for ``steps`` steps under ``torch.profiler`` after a
@@ -32,7 +32,7 @@ def main():
     from twoforone_torch.utils.artifacts import load_ema_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    spec = {"trp_cage": cs.TRP_CAGE, "chignolin": cs.CHIGNOLIN}[
+    spec = {"trp_cage": cs.TRP_CAGE, "bba": cs.BBA, "chignolin": cs.CHIGNOLIN}[
         sys.argv[1] if len(sys.argv) > 1 else "trp_cage"]
     chains = int(sys.argv[2]) if len(sys.argv) > 2 else 1000
     steps = int(sys.argv[3]) if len(sys.argv) > 3 else 50

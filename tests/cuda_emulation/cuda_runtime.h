@@ -10,7 +10,9 @@
 //
 // The sources reach the launch syntax and the dynamic shared memory through
 // the TILE_LAUNCH and TILE_DYNAMIC_SMEM macros (tile_gemm.cuh), which are
-// defined here for the CPU.
+// defined here for the CPU. Asynchronous copies are plain copies there (the
+// sources' PTX has scalar forms without __CUDA_ARCH__), so a wait on a copy
+// group returns at once.
 
 #pragma once
 
@@ -18,6 +20,7 @@
 
 #include <algorithm>
 #include <cmath>
+#include <cstdlib>
 #include <functional>
 #include <limits>
 #include <thread>
@@ -41,6 +44,7 @@ typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0;
 constexpr cudaError_t cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+constexpr int cudaDevAttrMultiProcessorCount = 16;
 
 namespace shim {
 
@@ -86,6 +90,32 @@ inline float rsqrtf(float v) { return 1.f / sqrtf(v); }
 template <typename F>
 cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes <= shim::MAX_SMEM_BYTES ? cudaSuccess : cudaErrorInvalidValue;
+}
+// The emulated card: EMU_SM_COUNT SMs (2 where unset), each holding
+// EMU_BLOCKS_PER_SM blocks, or where that is unset as many as its threads
+// (2048) and shared memory allow. The persistent grids follow these numbers,
+// so a test picks a grid of a few blocks through them.
+namespace shim {
+inline int env_int(const char* name, int fallback) {
+  const char* v = std::getenv(name);
+  return v && *v ? std::atoi(v) : fallback;
+}
+}  // namespace shim
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int threads,
+                                                          size_t smem) {
+  const int fit = (int)std::min<size_t>(2048 / std::max(threads, 1),
+                                        shim::MAX_SMEM_BYTES / std::max<size_t>(smem, 1));
+  *blocks = shim::env_int("EMU_BLOCKS_PER_SM", fit);
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = shim::env_int("EMU_SM_COUNT", 2);
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() {
   const cudaError_t err = shim::last_error();

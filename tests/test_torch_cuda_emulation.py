@@ -1,4 +1,5 @@
-"""The whole-force CUDA sources, compiled with g++ and run on the CPU.
+"""The CUDA sources, compiled with g++ and run on the CPU: the two
+whole-force kernels and the attention core's forward and backward.
 
 ``tests/cuda_emulation/cuda_runtime.h`` stands in for the CUDA runtime
 (threads of a block as OS threads, ``__syncthreads`` as a barrier, warp
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from twoforone_torch.models.graph_transformer import GraphTransformer, init_params
+from twoforone_torch.ops import attention_cl_core as acc
 from twoforone_torch.ops import fused_score as fs
 from twoforone_torch.ops import fused_score_cl as fcl
 from twoforone_torch.ops.tile_plan import plan_at, plan_tiles
@@ -175,3 +177,76 @@ def test_fused_score_source_matches_plain_version(lib_packed, tmp_path, intrinsi
         return
     tol = max(1e-5 * scale, 4.0 * np.abs(ref32 - ref64).max())
     np.testing.assert_allclose(out, ref64, atol=tol, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def lib_core(tmp_path_factory):
+    return build("attention_cl_core", tmp_path_factory)
+
+
+def run_core(lib, which, arrays, sms, tmp_path):
+    """One emulated launch of the forward or backward kernel
+    (tests/cuda_emulation/launch_core.py) under a time limit, on an emulated
+    card of ``sms`` SMs that hold one block each (0: the shim's own card, two
+    SMs filled as far as threads and shared memory allow): its outputs in the
+    order of the wrapper's results."""
+    src, dst = str(tmp_path / f"{which}_in.npz"), str(tmp_path / f"{which}_out.npz")
+    np.savez(src, **arrays)
+    env = dict(os.environ)
+    for name in ("EMU_SM_COUNT", "EMU_BLOCKS_PER_SM"):
+        env.pop(name, None)
+    if sms:
+        env.update(EMU_SM_COUNT=str(sms), EMU_BLOCKS_PER_SM="1")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "cuda_emulation", "launch_core.py"), lib.path, which,
+         src, dst], capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S, env=env)
+    assert proc.returncode == 0, f"launch returned {proc.returncode}: {proc.stderr[-2000:]}"
+    got = np.load(dst)
+    names = ("out", "fdiff") if which == "fwd" else ("dq", "dk", "dv", "dx", "dqb", "dqkd")
+    return [got[name] for name in names]
+
+
+def core_inputs(b, n, heads, dh, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    return dict(q=f(b, n, heads, dh), k=f(b, n, heads, dh), v=f(b, n, heads, dh), x=f(b, n, 3),
+                qb=f(b, heads, n), qkd=0.3 * f(b, heads, n, 3), dout=f(b, n, heads, dh),
+                dfd=f(b, heads, n, 3))
+
+
+# (N, H, dh, chains, SMs of one block each): one bead; ragged unit counts over
+# persistent grids of 1-3 blocks (the forward walks chains x heads units, the
+# backward chains); the shim's own card (two SMs, as many blocks as fit); dh
+# not a multiple of 4 (4-byte copies, zero-padded columns); the largest N and
+# dh.
+CORE_CASES = [(1, 2, 8, 3, 2), (3, 1, 8, 1, 1), (11, 2, 8, 3, 2), (20, 8, 64, 3, 2),
+              (20, 2, 64, 5, 3), (11, 8, 64, 5, 0), (3, 2, 6, 3, 2), (32, 1, 64, 2, 1)]
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("n,heads,dh,chains,sms", CORE_CASES)
+def test_attention_core_source_matches_plain_version(lib_core, tmp_path, which, n, heads, dh,
+                                                     chains, sms):
+    """Against cl_attention_reference / cl_attention_bwd_reference (dx summed
+    over heads on both sides), 1e-5 of each output's largest entry: the same
+    float32 arithmetic in another order (dqb, zero in exact arithmetic since a
+    softmax row sums to 1, against dqkd's scale). Two launches give the same
+    bits, and the first chain alone gives the bits it gets inside the batch."""
+    arrays = core_inputs(chains, n, heads, dh, seed=100 * n + 10 * heads + dh)
+    names = ("q", "k", "v", "x", "qb", "qkd") + (("dout", "dfd") if which == "bwd" else ())
+    arrays = {name: arrays[name] for name in names}
+    got = run_core(lib_core, which, arrays, sms, tmp_path)
+    ins = [torch.from_numpy(arrays[name]) for name in names]
+    ref = [r.numpy() for r in (acc.cl_attention_reference(*ins) if which == "fwd"
+                               else acc.cl_attention_bwd_reference(*ins))]
+    scales = [np.abs(r).max() for r in ref]
+    if which == "bwd":
+        scales[4] = scales[5]
+    for out, r, scale in zip(got, ref, scales):
+        assert out.shape == r.shape and np.isfinite(out).all()
+        np.testing.assert_allclose(out, r, atol=1e-5 * scale, rtol=0)
+    again = run_core(lib_core, which, arrays, sms, tmp_path)
+    alone = run_core(lib_core, which, {k: a[:1] for k, a in arrays.items()}, sms, tmp_path)
+    for out, rep, one in zip(got, again, alone):
+        np.testing.assert_array_equal(rep, out)
+        np.testing.assert_array_equal(one, out[:1])

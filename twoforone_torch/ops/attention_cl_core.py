@@ -40,8 +40,9 @@ from torch.autograd.function import once_differentiable
 
 from twoforone_torch.ops import _build
 
-# What csrc/attention_cl_core.cu takes: one lane per key bead, and a shared
-# memory budget that holds a (chain, head) tile of the backward.
+# What csrc/attention_cl_core.cu takes: four lanes of its 128 threads a
+# softmax row, and a double buffer of (chain, head) units of the backward
+# that two blocks of an SM hold in shared memory.
 KERNEL_MAX_N = 32
 KERNEL_MAX_DH = 64
 
@@ -74,8 +75,8 @@ def _lib():
     lib = _build.load("attention_cl_core")
     if not getattr(lib, "_argtypes_set", False):
         dims = [ctypes.c_int] * 4 + [ctypes.c_void_p]  # batch, n, heads, dh, stream
-        lib.cl_attention_fwd_launch.argtypes = [ctypes.c_void_p] * 8 + dims
-        lib.cl_attention_bwd_launch.argtypes = [ctypes.c_void_p] * 14 + dims
+        lib.cl_attention_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + dims
+        lib.cl_attention_bwd_launch.argtypes = [ctypes.c_void_p] * 13 + dims
         lib.cl_attention_fwd_launch.restype = ctypes.c_int
         lib.cl_attention_bwd_launch.restype = ctypes.c_int
         lib.cudaGetErrorString_port.argtypes = [ctypes.c_int]
@@ -100,10 +101,11 @@ def _launch(name, tensors, shape):
 
 def cl_attention_fwd(q, k, v, x, qb, qkd):
     """Launch the forward kernel on contiguous float32 CUDA tensors:
-    ``(out, fdiff)``."""
+    ``(out, fdiff)``. The kernel does not read qb, a constant along a row of
+    sim that the softmax does not see."""
     out = torch.empty_like(q)
     fdiff = torch.empty_like(qkd)
-    _launch("cl_attention_fwd_launch", (q, k, v, x, qb, qkd, out, fdiff), q.shape)
+    _launch("cl_attention_fwd_launch", (q, k, v, x, qkd, out, fdiff), q.shape)
     cl_attention_core.launches_fwd += 1
     return out, fdiff
 
@@ -111,14 +113,13 @@ def cl_attention_fwd(q, k, v, x, qb, qkd):
 def cl_attention_bwd(q, k, v, x, qb, qkd, dout, dfd):
     """Launch the backward kernel (it recomputes attn from the inputs) on
     contiguous float32 CUDA tensors: ``(dq, dk, dv, dx, dqb, dqkd)``. The
-    kernel writes one dx share per head, with no atomics; they are summed
-    over heads here."""
+    kernel sums dx over heads itself, in head order and without atomics."""
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dqb, dqkd, dxh = torch.empty_like(qb), torch.empty_like(qkd), torch.empty_like(qkd)
+    dqb, dqkd, dx = torch.empty_like(qb), torch.empty_like(qkd), torch.empty_like(x)
     _launch("cl_attention_bwd_launch",
-            (q, k, v, x, qb, qkd, dout, dfd, dq, dk, dv, dqb, dqkd, dxh), q.shape)
+            (q, k, v, x, qkd, dout, dfd, dq, dk, dv, dqb, dqkd, dx), q.shape)
     cl_attention_core.launches_bwd += 1
-    return dq, dk, dv, dxh.sum(dim=1), dqb, dqkd
+    return dq, dk, dv, dx, dqb, dqkd
 
 
 class ClAttentionCore(torch.autograd.Function):
