@@ -20,7 +20,13 @@ models, with bench.py's settings:
   DDIM-100 at batch 1024 through ``make_fused_sample_fn(kernel="auto")`` on
   the upstream-default edge configuration (squared distances and absolute
   coordinates; no trained model has it, so the weights come from a seed) at
-  chignolin width.
+  chignolin width;
+- the sampling CLI (``twoforone_torch.cli.sample.main``) on copies of the
+  staged results directories: chignolin Langevin and i.i.d. sampling through
+  ``--fused auto`` (the fused force kernel), trp-cage Langevin through
+  ``--fused auto`` (the attention-core path), alanine dipeptide through
+  ``--fused auto`` and villin and protein G through ``--fused always`` (the
+  fused force kernel for every edge configuration).
 
 Phases (any failure exits non-zero):
 
@@ -30,11 +36,12 @@ Phases (any failure exits non-zero):
    shapes the paths give it, and time both; for the two whole-force kernels
    also ragged tiles (chain counts around the tile size); for every kernel a
    chain's result alone against the same chain in a large batch and two calls
-   bit for bit; the attention-core kernels beside their earlier design's
-   times and one library call (scaled_dot_product_attention on augmented
-   operands); the clx force evaluation graphed against eager (bits, t across
+   bit for bit; the attention-core kernels beside one library call
+   (scaled_dot_product_attention on augmented operands); the clx force evaluation graphed against eager (bits, t across
    replays, launches per evaluation, ms) and beside the whole-force kernel;
-   the compiler's registers and spills;
+   the compiler's registers and spills; the staged models only the CLI runs
+   (K4 on villin and protein G, K1 on alanine dipeptide) at its chain count,
+   with K4's shared memory per block;
 3. chignolin Langevin with the launch counters set to 0 just before and read
    just after; counts, finiteness, steps/s;
 4. 10 chignolin steps with the same injected noise through the kernel path
@@ -49,7 +56,11 @@ Phases (any failure exits non-zero):
 8. sampling through ``kernel="auto"`` on the default edge configuration
    (resolves to ``"packed"``; counts, finiteness, centre of mass, samples/s;
    every score call of a DDIM-20 chain against the plain version at the same
-   state, and the chain's samples beside the plain path's).
+   state, and the chain's samples beside the plain path's);
+9. the sampling CLI's runs, each with the counters set to 0 just before and
+   read just after: resolved path and kernel, launches against score
+   evaluations, output shape, finiteness, the .npy, .pt and .pdb files, wall
+   seconds and rates (the chignolin Langevin rate beside phase 3's).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -137,13 +148,6 @@ CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATC
 # Chain counts at which K2 and K3 are timed at trp-cage width: where the path
 # gate starts sending chains to the attention core, and the Langevin runs'.
 CORE_TIMED_CHAINS = (AGREE_BATCH, TRP_CHAINS)
-# The one-(chain, head)-per-block attention-core kernels these replaced, as
-# PERF.md records them (NVIDIA H100 80GB HBM3, 700.00 W), in ms at trp-cage
-# width: at 1000 chains this script's back-to-back time from Python, at 256
-# chains the device time that scripts/torch_core_bench.py read on a checkout
-# of that design (the faster of two runs). Neither kernel may be slower.
-EARLIER_CORE_MS = {TRP_CHAINS: ("ms", {"fwd": 0.1905, "bwd": 0.4081}),
-                   AGREE_BATCH: ("device_ms", {"fwd": 0.0580, "bwd": 0.1156})}
 # The graphed clx evaluation against the eager one: the same kernels in the
 # same order give the same bits unless cuBLAS picks another algorithm under
 # capture; then within this, relative to the largest force.
@@ -152,6 +156,33 @@ TOL_GRAPH_REL = 1e-6
 K4_TIMED_STEPS = 500
 K4_DDIM_BATCH = 1024
 K4_CHAINS = sorted({AGREE_BATCH, *CHAINS, K4_DDIM_BATCH})
+# The sampling CLI's runs (phase 9), each on a copy of a staged results
+# directory: (artifact, beads, flags, Langevin force path, sampler kernel).
+# Every chain count and batch is one phase 2 holds the kernel at: 1000 and
+# 1024 chains for chignolin and trp-cage, CLI_SMALL_CHAINS for alanine
+# dipeptide, villin and protein G.
+CLI_SMALL_CHAINS = 100
+CLI_T = 20 / 1000  # the CLI's default --noise_level over T
+_SMALL_RUN = ["--parallel_sim", str(CLI_SMALL_CHAINS), "--batch_size_gen", str(CLI_SMALL_CHAINS),
+              "--n_timesteps", "200", "--save_interval", "100", "--sample_steps", "20"]
+CLI_RUNS = (
+    ("chain10", 10, ["--gen_mode", "langevin", "--fused", "auto", "--parallel_sim", "1000",
+                     "--batch_size_gen", "1000", "--n_timesteps", "1000", "--save_interval",
+                     "250", "--sample_steps", "100"], "cl", "cl"),
+    ("chain10", 10, ["--gen_mode", "iid", "--fused", "auto", "--sample_steps", "100",
+                     "--num_samples_eval", "4096", "--batch_size_gen", "1024"], None, "cl"),
+    ("chain20", 20, ["--gen_mode", "langevin", "--fused", "auto", "--parallel_sim", "1000",
+                     "--batch_size_gen", "1000", "--n_timesteps", "500", "--sample_steps",
+                     "100"], "clx", "clx"),
+    ("ala5", 5, ["--gen_mode", "langevin", "--fused", "auto", *_SMALL_RUN], "cl", "cl"),
+    ("chain35", 35, ["--gen_mode", "langevin", "--fused", "always", *_SMALL_RUN], "always",
+     "packed"),
+    ("chain56", 56, ["--gen_mode", "langevin", "--fused", "always", *_SMALL_RUN], "always",
+     "packed"),
+)
+# Launches of (K1, K2, K3, K4) for one score evaluation on each path.
+PER_CALL = {"cl": (1, 0, 0, 0), "clx": (0, 3, 3, 0), "always": (0, 0, 0, 1),
+            "packed": (0, 0, 0, 1)}
 
 
 def log(msg):
@@ -333,6 +364,102 @@ def ten_steps_agree(phase, gd, params, spec, chains, kernel_mode, dev):
         fail(f"{phase}: kernel path and plain path trajectories disagree")
 
 
+def cli_phase(reset_counts, add_counts, chignolin_sps):
+    """Phase 9: ``twoforone_torch.cli.sample.main`` on a copy of each staged
+    results directory of ``CLI_RUNS`` (the CLI writes into ``--model_path``).
+    For each run: the resolved force path and sampler kernel, the launch
+    counts against the score evaluations, the output's shape (the JAX CLI's
+    contract) and finiteness, the three files, the PDB reloaded, the wall
+    seconds and the Langevin rate. Returns the rates by run."""
+    import shutil
+    import tempfile
+
+    from twoforone_torch.cli import sample as cli
+    from twoforone_torch.data.pdb import load_pdb
+    from twoforone_torch.utils.artifacts import trained_dir
+
+    seen = {}
+
+    class TimedLangevin(cli.LangevinDiffusion):
+        def sample(self, reference_temp=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().sample(reference_temp)
+            torch.cuda.synchronize()
+            seen.update(langevin_s=time.perf_counter() - t0, path=self.force_fn.mode)
+            return out
+
+    def recorded_sampling(sample_fn, *args, **kwargs):
+        seen["kernel"] = sample_fn.kernel
+        t0 = time.perf_counter()
+        out = plain_sampling(sample_fn, *args, **kwargs)
+        seen["sampling_s"] = seen.get("sampling_s", 0.0) + time.perf_counter() - t0
+        return out
+
+    plain_langevin, plain_sampling = cli.LangevinDiffusion, cli.sample_from_model
+    cli.LangevinDiffusion, cli.sample_from_model = TimedLangevin, recorded_sampling
+    rates = {}
+    try:
+        for name, beads, flags, path, kernel in CLI_RUNS:
+            with tempfile.TemporaryDirectory() as tmp:
+                results = os.path.join(tmp, name)
+                shutil.copytree(trained_dir(name), results)
+                argv = ["--model_path", results, *flags]
+                args = cli.build_parser().parse_args(argv)
+                seen.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cli.main(argv)
+                wall = time.perf_counter() - t0
+                got = add_counts()
+                mode = args.gen_mode
+                drawn = args.parallel_sim if mode == "langevin" else args.num_samples_eval
+                calls = -(-drawn // args.batch_size_gen) * (args.sample_steps or 1000)
+                steps = args.n_timesteps if mode == "langevin" else 0
+                want = tuple(c * calls + p * steps
+                             for c, p in zip(PER_CALL[kernel], PER_CALL.get(path, (0,) * 4)))
+                frames = (args.parallel_sim * args.n_timesteps // args.save_interval
+                          if mode == "langevin" else args.num_samples_eval)
+                written = os.path.join(results, f"main_eval_output_{mode}", f"sample-{mode}")
+                saved, pt = np.load(f"{written}.npy"), torch.load(f"{written}.pt")
+                pdb = load_pdb(f"{written}.pdb")
+                label = f"{name}_{mode}"
+                rates[label] = dict(wall_s=wall, sampling_s=seen["sampling_s"],
+                                    launches_k1_fwd_bwd_k4=got)
+                if mode == "langevin":
+                    rates[label].update(langevin_s=seen["langevin_s"],
+                                        steps_per_s=steps / seen["langevin_s"],
+                                        chains=args.parallel_sim)
+                else:
+                    rates[label]["samples_per_s"] = drawn / seen["sampling_s"]
+                finite = bool(np.isfinite(out).all())
+                ok = (seen["kernel"] == kernel and seen.get("path") == path and got == want
+                      and tuple(out.shape) == (frames, beads, 3) and finite
+                      and np.array_equal(saved, out) and np.array_equal(pt.numpy(), out)
+                      and pdb.topology.n_atoms == beads
+                      and np.allclose(pdb.xyz, out[0], atol=1e-3))
+                extra = "".join(f" {k}={v:.3f}" for k, v in rates[label].items()
+                                if isinstance(v, float))
+                log(f"phase9 cli {label} {' '.join(flags)}: force_path={seen.get('path')} "
+                    f"(want {path}) sampler_kernel={seen['kernel']} (want {kernel}) "
+                    f"launches_k1_fwd_bwd_k4={got} (want {want}) shape={tuple(out.shape)} "
+                    f"(want {(frames, beads, 3)}) finite={finite} npy_pt_pdb_written=True "
+                    f"pdb_atoms={pdb.topology.n_atoms} pdb_residues={pdb.topology.n_residues}"
+                    f"{extra} ok={ok}")
+                if not ok:
+                    fail(f"phase9: the CLI run {label} took another path, launched other "
+                         "kernels than its score evaluations, or wrote wrong output")
+    finally:
+        cli.LangevinDiffusion, cli.sample_from_model = plain_langevin, plain_sampling
+    ratio = rates["chain10_langevin"]["steps_per_s"] / chignolin_sps
+    rates["chain10_langevin"]["over_phase3"] = ratio
+    log(f"phase9 chignolin Langevin through the CLI at 1000 chains: "
+        f"{rates['chain10_langevin']['steps_per_s']:.2f} steps/s, phase 3 {chignolin_sps:.2f}, "
+        f"ratio {ratio:.3f} (not held: host noise around the kernel)")
+    return rates
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -346,7 +473,8 @@ def main():
     from twoforone_torch.ops import fused_score as fsc
     from twoforone_torch.ops import fused_score_cl as fcl
     from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
-    from twoforone_torch.utils.artifacts import load_ema_params
+    from twoforone_torch.cli.sample import load_model
+    from twoforone_torch.utils.artifacts import load_ema_params, trained_dir
     from twoforone_torch.utils.device import sm_count
 
     def reset_counts():
@@ -593,17 +721,12 @@ def main():
             tm["bound_ms"], tm["bound_by"] = bound(flops, nbytes)
             extra = "".join(f" {key}={tm[key]:.4f}" for key in ("plain_ms", "library_ms")
                             if key in tm)
-            kind, earlier = EARLIER_CORE_MS.get(b, (None, {}))
-            note = f" (earlier design {kind}={earlier[which]}, PERF.md)" if kind else ""
             log(f"phase2 timing cl_attention_{which} N={n} B={b} kernel_ms={tm['ms']:.4f} "
-                f"device_ms={tm['device_ms']:.4f}{note}{extra} "
+                f"device_ms={tm['device_ms']:.4f}{extra} "
                 f"bound_ms={tm['bound_ms']:.4f} bound_by={tm['bound_by']} "
                 f"share_of_bound={tm['bound_ms'] / tm['device_ms']:.3f} "
                 f"gflop={flops / 1e9:.3f} mbytes={nbytes / 1e6:.1f} "
                 f"achieved_gb_per_s={nbytes / tm['device_ms'] / 1e6:.1f}")
-            if kind and tm[kind] > earlier[which]:
-                fail(f"phase2: cl_attention_{which} is slower than the design it replaced "
-                     f"at {b} chains")
 
     # K4, the fused force kernel for every edge configuration, against its
     # plain version in float64 (see TOL_F32_FACTOR).
@@ -688,6 +811,40 @@ def main():
         check_k4("seeded distances+abs", model, init_params(model, seed), chains, t10,
                  70 + seed)
 
+    # The staged models that only the CLI phase runs: K4 on villin (N=35) and
+    # protein G (N=56), K1 on alanine dipeptide (N=5), at the chain count
+    # the CLI phase gives them and at its noise level (fixed t) and a
+    # sampler's (runtime t), before the CLI phase times them.
+    from twoforone_torch.ops.tile_plan import UNIT_CAP_FLOATS, head_group, unit_floats
+
+    staged = {name: load_model(trained_dir(name), "best", device=dev)[:2]
+              for name in ("ala5", "chain35", "chain56")}
+    for name in ("chain35", "chain56"):
+        g, w = staged[name]
+        check_k4(name, g.model, w, CLI_SMALL_CHAINS, CLI_T, 90 + g.num_atoms)
+        f = fsc.augment_params(g.model, w, dev)
+        plan = plan_tiles(CLI_SMALL_CHAINS, f.n, f.c, f.heads, f.dh, f.ff, f.n_layers, sms)
+        group = head_group(f.n, f.heads, f.dh)
+        log(f"phase2 fused_force {name} N={f.n} chains={CLI_SMALL_CHAINS} "
+            f"chains_per_tile={plan.chains_per_tile} rows={plan.rows} "
+            f"shared_memory_per_block_bytes={plan.smem_bytes} "
+            f"attention_unit_bytes={4 * unit_floats(f.n, group, f.dh, 4)} "
+            f"of_limit_bytes={4 * UNIT_CAP_FLOATS} heads_per_unit={group}")
+    g, w = staged["ala5"]
+    fw_ala = fcl.augment_params_cl(g.model, w, dev)
+    x = normal(5, (CLI_SMALL_CHAINS, 5, 3), dev)
+    for label, t in (("fixed", CLI_T), ("runtime", 0.37)):
+        out = fcl.fused_force_cl(x, t, fw_ala)
+        torch.cuda.synchronize()
+        ref = fcl.fused_force_cl_reference(x, t, fw_ala)
+        err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= TOL_REL * scale
+        log(f"phase2 fused_force_cl ala5 N=5 chains={CLI_SMALL_CHAINS} t={label}:{t} "
+            f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
+        if not ok:
+            fail("phase2: fused_force_cl disagrees with its plain version on ala5")
+        k1_err = max(k1_err, err)
+
     k4_timing = {}
     for label, model, weights, chains in (
             *((f"chain10_{c}", gd.model, params, c) for c in (*CHAINS, K4_DDIM_BATCH)),
@@ -707,6 +864,23 @@ def main():
             f"bound_ms={bound_ms:.4f} bound_by={bound_by} "
             f"residual_traffic_ms_at_hbm_rate={scratch_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
             f"gflop={flops / 1e9:.3f} achieved_tflops={flops / ms / 1e9:.3f}")
+    for name in ("chain35", "chain56"):
+        g, w = staged[name]
+        fixed = fsc.make_fused_force_kernel(g.model, w, CLI_T, dev)
+        x = normal(7, (CLI_SMALL_CHAINS, g.num_atoms, 3), dev)
+        ms = cuda_time_ms(lambda: fixed(x), 20)
+        plain_ms = cuda_time_ms(lambda: fsc.fused_force_reference(x, CLI_T, fixed.folded),
+                                PLAIN_REPS)
+        f = fixed.folded
+        flops = fused_force_flops(f, CLI_SMALL_CHAINS)
+        bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + f.flat.numel()))
+        k4_timing[f"{name}_{CLI_SMALL_CHAINS}"] = dict(ms=ms, plain_ms=plain_ms,
+                                                       bound_ms=bound_ms, bound_by=bound_by,
+                                                       flops=flops)
+        log(f"phase2 timing fused_force {name} N={f.n} C={f.c} chains={CLI_SMALL_CHAINS} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"bound_by={bound_by} gflop={flops / 1e9:.3f} "
+            f"achieved_tflops={flops / ms / 1e9:.3f}")
     # The two staged proteins of the attention-core path: the clx force
     # evaluation that the path gate picks there, graphed against eager (bits,
     # t across replays, launches per evaluation), and beside the whole-force
@@ -982,6 +1156,10 @@ def main():
     ddim20_agree("phase8", "default_edges", gd_def, params_def, CHIGNOLIN, "packed", hold=False)
 
     mark("phase8")
+
+    # ---------------------------------------------------------- phase 9
+    cli_rates = cli_phase(reset_counts, add_counts, sps[1000])
+    mark("phase9")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -989,6 +1167,7 @@ def main():
         **{f"chignolin_chains_{c}_always": k4_sps[c] for c in CHAINS},
     }))
     log("samples_per_s " + json.dumps(samples_per_s))
+    log("cli " + json.dumps(cli_rates))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

@@ -96,13 +96,23 @@ def test_port_imports_no_jax_flax_or_jax_package():
     files.append(os.path.join(REPO, "chip_smoke.py"))
     files.append(os.path.join(REPO, "scripts", "torch_profile_langevin.py"))
     assert len(files) > 15
+    scanned = {os.path.relpath(f, PORT) for f in files}
+    for module in ("cli/sample.py", "data/pdb.py", "data/datasets.py", "data/synthetic.py",
+                   "data/molecules.py", "evaluate/deeptime_compat.py",
+                   "evaluate/evaluators.py", "utils/config.py", "utils/convert.py",
+                   "utils/artifacts.py", "models/__init__.py"):
+        assert module in scanned, module
     banned = ("jax", "flax", "twoforone_tpu", "optax")
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in banned, f"{path} imports {mod}"
 
 
-def _entry_points():
+def _entry_points(tmp_path):
+    import shutil
+
+    from twoforone_torch.cli.sample import load_model
+    from twoforone_torch.cli.sample import main as sample_cli
     from twoforone_torch.core.diffusion import GaussianDiffusion
     from twoforone_torch.dynamics.integrators import LangevinSimulation
     from twoforone_torch.dynamics.langevin import LangevinDiffusion, make_diffusion_force_fn
@@ -120,6 +130,11 @@ def _entry_points():
 
     def force_fn(x):
         return torch.zeros(x.shape[0]), -x
+
+    results = tmp_path / "chain10"
+    shutil.copytree(trained_dir("chain10"), results)
+    cli_args = ["--model_path", str(results), "--num_samples_eval", "2", "--batch_size_gen",
+                "2", "--sample_steps", "2"]
 
     return {
         "LangevinDiffusion": lambda **kw: LangevinDiffusion(
@@ -139,6 +154,9 @@ def _entry_points():
             params, 2, sample_steps=2, **kw),
         "GaussianDiffusion.loss": lambda **kw: gd.loss(
             params, init, torch.Generator().manual_seed(0), **kw),
+        "cli.sample.load_model": lambda **kw: load_model(str(results), "best", **kw),
+        "cli.sample.main": lambda **kw: sample_cli(
+            cli_args + [f"--{k}={v}" for k, v in kw.items()]),
     }
 
 
@@ -167,12 +185,13 @@ def _model_params(model):
                                   "make_clx_force_fn", "make_fused_force_kernel",
                                   "GaussianDiffusion.sample",
                                   "GaussianDiffusion.make_fused_sample_fn",
-                                  "GaussianDiffusion.loss"])
-def test_entry_points_need_cuda_unless_cpu(name, monkeypatch):
+                                  "GaussianDiffusion.loss", "cli.sample.load_model",
+                                  "cli.sample.main"])
+def test_entry_points_need_cuda_unless_cpu(name, monkeypatch, tmp_path):
     """Default device is CUDA: without it an entry point raises; with
-    device="cpu" it runs on the host."""
+    device="cpu" (the CLI: ``--device=cpu``) it runs on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    build = _entry_points()[name]
+    build = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
     build(device="cpu")

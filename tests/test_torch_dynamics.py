@@ -112,6 +112,17 @@ def test_ten_langevin_steps_match_jax_loop(fused):
     np.testing.assert_allclose(out, ref, atol=1e-4 * np.abs(ref).max(), rtol=0)
 
 
+def test_fused_default_is_the_jax_packages():
+    """A call that names no force path runs the same one in both packages:
+    the plain network. Read from the signatures, since on the CPU both
+    resolve every default to the plain network anyway."""
+    import inspect
+
+    ours = inspect.signature(LangevinDiffusion).parameters["fused"].default
+    theirs = inspect.signature(JLD).parameters["fused"].default
+    assert ours == theirs == "never"
+
+
 @pytest.mark.parametrize("kb", ["consistent", "kcal"])
 def test_driver_units_auto_dt_and_force_scale_match_jax(kb):
     """kb_inv, auto-dt (dt=None) with dt_scale, beta and the force scale are

@@ -142,6 +142,25 @@ def test_reference_on_chain10_matches_cl_reference_and_jax():
         np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
 
 
+@pytest.mark.parametrize("name", ["chain35", "chain56"])
+def test_reference_on_staged_weights_matches_jax(name):
+    """villin (N=35) and protein G (N=56) trained weights at full width, the
+    models ``fused="always"`` sends to this kernel from the CLI: the plain
+    version against the JAX network at fixed and runtime t, 4 chains. 2e-5
+    of the largest force, as on chain10."""
+    from test_torch_model import MORE_STAGED, jax_staged
+
+    n, nf = MORE_STAGED[name]
+    _, jparams, score = jax_staged(name, n, nf)
+    folded = fs.augment_params(GraphTransformer(n, nf, 3, **PRODUCTION),
+                               load_ema_params(name), "cpu")
+    x = np.random.default_rng(5).normal(size=(4, n, 3)).astype(np.float32)
+    for t in (0.02, 0.5):
+        ref = np.asarray(score(jparams, jnp.asarray(x), jnp.full((4,), t, jnp.float32)))
+        out = fs.fused_force_reference(torch.from_numpy(x), t, folded).numpy()
+        np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
 @functools.lru_cache(maxsize=None)
 def _default_edges_pair():
     """The upstream-default edge configuration (squared distances and

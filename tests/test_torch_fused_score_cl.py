@@ -63,6 +63,24 @@ def test_reference_matches_port_score_forward_chain10():
         np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
 
 
+@pytest.mark.parametrize("name", ["ala5"])
+def test_reference_on_staged_weights_matches_jax(name):
+    """The alanine-dipeptide weights (N=5, nf 64), which ``fused="auto"``
+    sends to this kernel: the plain version against the JAX network at fixed
+    and runtime t, 16 chains. 2e-5 of the largest force."""
+    from test_torch_model import MORE_STAGED, PRODUCTION, jax_staged
+
+    n, nf = MORE_STAGED[name]
+    _, jparams, score = jax_staged(name, n, nf)
+    folded = fcl.augment_params_cl(GraphTransformer(n, nf, 3, **PRODUCTION),
+                                   load_ema_params(name), "cpu")
+    x = np.random.default_rng(6).normal(size=(16, n, 3)).astype(np.float32)
+    for t in (0.02, 0.5):
+        ref = np.asarray(score(jparams, jnp.asarray(x), jnp.full((16,), t, jnp.float32)))
+        out = fcl.fused_force_cl_reference(torch.from_numpy(x), t, folded).numpy()
+        np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
 def test_wrapper_cpu_runs_plain_version_uncounted(small):
     _, _, folded, x = small
     xt = torch.from_numpy(x[:7])  # any chain count, no padding

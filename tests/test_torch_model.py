@@ -51,6 +51,45 @@ def test_score_forward_chain10_full_width():
     np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
 
 
+# The staged artifacts no other parity test loads: alanine dipeptide (N=5,
+# nf 64), villin (N=35, nf 128) and protein G (N=56, nf 128), all with the
+# production edge configuration.
+MORE_STAGED = {"ala5": (5, 64), "chain35": (35, 128), "chain56": (56, 128)}
+PRODUCTION = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
+
+
+def jax_staged(name, n, nf):
+    """The JAX network of a staged artifact with its EMA weights (restored
+    by flax from the file) and its jitted score function."""
+    import os
+
+    from flax import serialization
+
+    from twoforone_torch.utils.artifacts import trained_dir
+
+    jm = JGT(num_beads=n, hidden_nf=nf, n_layers=3, conservative=True, **PRODUCTION)
+    with open(os.path.join(trained_dir(name), "model-best.msgpack"), "rb") as f:
+        jparams = serialization.msgpack_restore(f.read())["ema_params"]
+    return jm, jparams, _jit_score(jm)
+
+
+@pytest.mark.parametrize("name", sorted(MORE_STAGED))
+def test_score_forward_staged_weights_full_width(name):
+    """Trained weights at the published widths through the port's reader,
+    mapping and network against the JAX network, 4 chains at t = 0.02 (the
+    CLI's noise level) and 0.5. 2e-5 of the largest force, as on chain10."""
+    n, nf = MORE_STAGED[name]
+    _, jparams, score = jax_staged(name, n, nf)
+    model = GraphTransformer(n, nf, 3, **PRODUCTION)
+    model.load_state_dict(params_from_jax(load_ema_params(name)))
+    x = np.random.default_rng(4).normal(size=(4, n, 3)).astype(np.float32)
+    for t_norm in (0.02, 0.5):
+        t = np.full((4,), t_norm, np.float32)
+        ref = np.asarray(score(jparams, jnp.asarray(x), jnp.asarray(t)))
+        out = score_forward(model, torch.from_numpy(x), torch.from_numpy(t)).numpy()
+        np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
 EDGE_CONFIGS = [  # (use_intrinsic_coords, use_distances, use_abs_coords)
     (True, False, False),
     (False, True, True),

@@ -108,6 +108,9 @@ class LangevinDiffusion:
     Normalizes the initial coordinates, converts the score into forces with
     consistent units, auto-derives dt when not given, runs BAOA(F)B on
     ``device``, and rescales the saved trajectory back to data units.
+    ``fused`` defaults to the plain network (``"never"``), as in the JAX
+    package, so the same call runs the same path in both; ``"auto"`` and the
+    kernels are asked for explicitly.
     """
 
     def __init__(
@@ -127,7 +130,7 @@ class LangevinDiffusion:
         random_seed: Optional[int] = None,
         steps_per_chunk: Optional[int] = None,
         log: bool = True,
-        fused: str = "auto",
+        fused: str = "never",
         restraint_k: float = 0.0,
         max_force: Optional[float] = None,
         dt_scale: float = 1.0,
