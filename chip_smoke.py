@@ -26,7 +26,10 @@ models, with bench.py's settings:
   ``--fused auto`` (the fused force kernel), trp-cage Langevin through
   ``--fused auto`` (the attention-core path), alanine dipeptide through
   ``--fused auto`` and villin and protein G through ``--fused always`` (the
-  fused force kernel for every edge configuration).
+  fused force kernel for every edge configuration);
+- training: the trainer at chain10's published configuration on synthetic
+  chignolin frames, the sampling CLI on the weights it wrote (the fused
+  force kernel), and the train CLI on a synthetic protein-G data folder.
 
 Phases (any failure exits non-zero):
 
@@ -60,7 +63,16 @@ Phases (any failure exits non-zero):
 9. the sampling CLI's runs, each with the counters set to 0 just before and
    read just after: resolved path and kernel, launches against score
    evaluations, output shape, finiteness, the .npy, .pt and .pdb files, wall
-   seconds and rates (the chignolin Langevin rate beside phase 3's).
+   seconds and rates (the chignolin Langevin rate beside phase 3's);
+10. training: (a) ``Trainer.train`` at chain10's published configuration
+   (losses finite and falling, KL-at-T, checkpoints, the EMA read back bit
+   for bit, no kernel launched, the final samples scored on the golden
+   chignolin references), then the step timed and under ``torch.profiler``
+   (idle share, top kernels); (b) ``cli.sample`` on (a)'s results directory
+   through the fused force kernel (path, launches, finiteness) and the kernel
+   against its plain version on those weights; (c) ``cli.train`` on a
+   synthetic protein-G data folder at chain56's widths (files, empty results:
+   protein G has no metric).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -458,6 +470,286 @@ def cli_phase(reset_counts, add_counts, chignolin_sps):
         f"{rates['chain10_langevin']['steps_per_s']:.2f} steps/s, phase 3 {chignolin_sps:.2f}, "
         f"ratio {ratio:.3f} (not held: host noise around the kernel)")
     return rates
+
+
+# Phase 10, training. (a) The trainer at chain10's published configuration
+# (read from its config.json: nf 64, 3 layers, batch 512, lr 4e-4 cosine to
+# 1e-5, EMA 0.995, data_aug) on synthetic chignolin frames, for TRAIN_STEPS
+# steps with an evaluation halfway; then the step alone, timed and profiled.
+# (b) The sampling CLI on (a)'s results directory through K1. (c) The train
+# CLI on a synthetic protein-G data folder at chain56's widths: the card has
+# no matplotlib, so the fast folders' evaluators (which always plot in
+# training) cannot run there; protein G is the fast folder the JAX package's
+# Evaluator scores no metric for and draws no plot of.
+TRAIN_FRAMES = 20_000
+TRAIN_STEPS = 200
+TRAIN_WARMUP = 20
+TRAIN_TIMED = 50
+TRAIN_PROFILED = 20
+TRAIN_CLI_RUN = ["--gen_mode", "langevin", "--fused", "auto", "--parallel_sim", "100",
+                 "--batch_size_gen", "100", "--n_timesteps", "200", "--save_interval", "100",
+                 "--sample_steps", "20"]
+PROTEIN_G_FRAMES = 4000
+PROTEIN_G_STEPS = 30
+PROTEIN_G_EVAL = 20  # one evaluation, which saves the last checkpoint
+# Diffusion steps of the protein-G run: its two ancestral chains (the
+# evaluation's and the final one) run the plain network eagerly, one score
+# call a step; 200 keeps KL-at-T ~4e-6 on its data.
+PROTEIN_G_DIFFUSION_STEPS = 200
+
+
+def training_phase(reset_counts, add_counts, dev):
+    """Phase 10 (a)-(c); returns the numbers it measured and K1's largest
+    distance from its plain version on the trained weights."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from twoforone_torch.cli import sample as sample_cli
+    from twoforone_torch.cli import train as train_cli
+    from twoforone_torch.core.diffusion import GaussianDiffusion
+    from twoforone_torch.data.datasets import CGDataset
+    from twoforone_torch.data.molecules import FOLDED_PDB_DIR, Molecules
+    from twoforone_torch.data.pdb import load_pdb
+    from twoforone_torch.data.synthetic import chain10_dataset, chain_dataset, make_chain_components
+    from twoforone_torch.evaluate.evaluators import Evaluator
+    from twoforone_torch.models import get_model
+    from twoforone_torch.ops import fused_score_cl as fcl
+    from twoforone_torch.train.trainer import Trainer, batch_iterator
+    from twoforone_torch.utils.artifacts import trained_dir
+    from twoforone_torch.utils.checkpoint import load_checkpoint
+    from twoforone_torch.utils.config import TrainConfig
+    from twoforone_torch.utils.convert import params_from_jax
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # ------------------------------------------------------------ (a)
+        with open(os.path.join(trained_dir("chain10"), "config.json")) as f:
+            published = json.load(f)
+        cfg = TrainConfig.from_dict(dict(
+            published, results_folder=tmp, tensorboard_folder=os.path.join(tmp, "runs"),
+            experiment_name="chain10", train_iter=TRAIN_STEPS, eval_interval=TRAIN_STEPS // 2,
+            num_samples_final_eval=published["batch_size"]))
+        frames = chain10_dataset(TRAIN_FRAMES, seed=0)
+        topology = load_pdb(os.path.join(FOLDED_PDB_DIR, "CLN025-0-c-alpha.pdb")).topology
+        cut = (int(0.7 * TRAIN_FRAMES), int(0.8 * TRAIN_FRAMES))
+        sets = tuple(CGDataset(d, topology, Molecules.CHIGNOLIN)
+                     for d in (frames[:cut[0]], frames[cut[0]:cut[1]], frames[cut[1]:]))
+        gd = GaussianDiffusion(model=get_model(cfg, 10), num_atoms=10,
+                               timesteps=cfg.diffusion_steps,
+                               norm_factor=float(sets[0].data.std()),
+                               loss_weights=cfg.loss_weights)
+        trainer = Trainer(gd, sets, cfg.mol, cfg, use_tensorboard=False, evaluators=False,
+                          device=dev)
+        step_fn, metrics = trainer._train_step, []
+
+        def recorded(*args, **kwargs):
+            metrics.append(step_fn(*args, **kwargs))
+            return metrics[-1]
+
+        trainer._train_step = recorded
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = add_counts()
+        trainer._train_step = step_fn
+        losses = np.array([float(m["loss"]) for m in metrics])
+        kl_max = float(metrics[-1]["kl_max"])
+        rf = trainer.results_folder
+        written = {name: os.path.exists(os.path.join(rf, name)) for name in (
+            "model-last.msgpack", "model-best.msgpack", "config.json", "sample-final_iid.npy")}
+        best = load_checkpoint(rf, "best")
+        ema_back = params_from_jax(best["ema_params"])
+        ema_same = all(torch.equal(ema_back[k].to(dev), v)
+                       for k, v in trainer.ema.state_dict().items())
+        last_step = int(load_checkpoint(rf, "last")["step"])
+        samples = np.load(os.path.join(rf, "sample-final_iid.npy"))
+        scores = Evaluator(None, None, mol_name="chignolin").eval(samples, "chip_smoke")
+        first, final = float(losses[:50].mean()), float(losses[-50:].mean())
+        ok = (len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()) and final < first
+              and kl_max <= 1e-4 and all(written.values()) and ema_same
+              and last_step == TRAIN_STEPS and launched == (0, 0, 0, 0)
+              and samples.shape == (cfg.batch_size, 10, 3) and bool(np.isfinite(samples).all())
+              and bool(np.isfinite(scores["PWD JS"])))
+        out["chain10_train"] = dict(steps=len(losses), wall_s=wall, loss_first_50=first,
+                                    loss_last_50=final, kl_max=kl_max,
+                                    best_val_loss=trainer.best_val_loss,
+                                    tic_js=scores["TIC JS"], pwd_js=scores["PWD JS"])
+        log(f"phase10 (a) chignolin Trainer.train at chain10's published configuration "
+            f"(nf {cfg.hidden_features_gnn}, {cfg.num_layers_gnn} layers, batch {cfg.batch_size}, "
+            f"lr {cfg.learning_rate} cosine to {cfg.min_lr_cosine_anneal}, EMA {cfg.ema_decay}, "
+            f"data_aug {cfg.data_aug}, steps_per_host_loop {cfg.steps_per_host_loop}): "
+            f"steps={len(losses)} wall_s={wall:.2f} (evaluation at {TRAIN_STEPS // 2} and the "
+            f"final 1000-step sampling included) loss_first_50={first:.4f} "
+            f"loss_last_50={final:.4f} all_finite={bool(np.isfinite(losses).all())} "
+            f"kl_max={kl_max:.3e} best_val_loss={trainer.best_val_loss:.4f} "
+            f"written={written} last_step={last_step} ema_read_back_same_bits={ema_same} "
+            f"launches_k1_fwd_bwd_k4={launched} (want none: training runs no kernel) "
+            f"final_samples={samples.shape} golden_pwd_js={scores['PWD JS']:.4f} "
+            f"golden_tic_js={scores['TIC JS']:.4f} (not held: synthetic frames may fall "
+            f"outside the chignolin TICA histogram, which gives nan) ok={ok}")
+        if not ok:
+            fail("phase10 (a): the training run failed a check")
+
+        it = batch_iterator(sets[0].data, cfg.batch_size, seed=1)
+        gen = torch.Generator(dev).manual_seed(5)
+        for _ in range(TRAIN_WARMUP):
+            trainer._train_step(next(it), gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED):
+            trainer._train_step(next(it), gen)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILED):
+                trainer._train_step(next(it), gen)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+        kernels, n_kernels = {}, 0
+        for ev in prof.events():  # kernels, not the annotations that span them
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(ev, "is_user_annotation", False)):
+                kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time / 1e3
+                n_kernels += 1
+        busy_ms = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        # The profiler's count of the products (matrix multiplies), the bulk
+        # of a step's arithmetic; elementwise work is not counted.
+        flops = sum(e.flops for e in prof.key_averages()) / TRAIN_PROFILED
+        out["chain10_step"] = dict(
+            ms_per_step=step_ms, steps_per_s=1e3 / step_ms, batch=cfg.batch_size,
+            gflop_per_step=flops / 1e9, bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+            profiled_ms_per_step=profiled_ms / TRAIN_PROFILED,
+            device_busy_ms_per_step=busy_ms / TRAIN_PROFILED,
+            device_idle_share=max(0.0, 1.0 - busy_ms / profiled_ms),
+            kernels_per_step=n_kernels / TRAIN_PROFILED,
+            top_kernels_ms_per_step={k[:70]: v / TRAIN_PROFILED for k, v in top})
+        log(f"phase10 (a) chignolin training step, batch {cfg.batch_size}, after "
+            f"{TRAIN_WARMUP} warm-up steps: ms_per_step={step_ms:.4f} "
+            f"steps_per_s={1e3 / step_ms:.2f} gflop_per_step={flops / 1e9:.2f} "
+            f"(the profiler's count of the products) "
+            f"fp32_bound_ms={flops / PEAK_FP32_FLOPS * 1e3:.4f}; "
+            f"torch.profiler over {TRAIN_PROFILED} steps: "
+            + json.dumps({k: v for k, v in out["chain10_step"].items()
+                          if k not in ("ms_per_step", "steps_per_s")}))
+
+        # ------------------------------------------------------------ (b)
+        seen = {}
+
+        class RecordedLangevin(sample_cli.LangevinDiffusion):
+            def sample(self, reference_temp=None):
+                seen["path"] = self.force_fn.mode
+                return super().sample(reference_temp)
+
+        def recorded_sampling(sample_fn, *args, **kwargs):
+            seen["kernel"] = sample_fn.kernel
+            return plain_sampling(sample_fn, *args, **kwargs)
+
+        plain_langevin, plain_sampling = sample_cli.LangevinDiffusion, sample_cli.sample_from_model
+        sample_cli.LangevinDiffusion, sample_cli.sample_from_model = (RecordedLangevin,
+                                                                      recorded_sampling)
+        argv = ["--model_path", rf, *TRAIN_CLI_RUN]
+        args = sample_cli.build_parser().parse_args(argv)
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traj = sample_cli.main(argv)
+            wall = time.perf_counter() - t0
+            got = add_counts()
+        finally:
+            sample_cli.LangevinDiffusion, sample_cli.sample_from_model = (plain_langevin,
+                                                                          plain_sampling)
+        want = (args.n_timesteps + args.sample_steps, 0, 0, 0)
+        frames_out = args.parallel_sim * args.n_timesteps // args.save_interval
+        ok = (seen.get("path") == "cl" and seen.get("kernel") == "cl" and got == want
+              and traj.shape == (frames_out, 10, 3) and bool(np.isfinite(traj).all()))
+        log(f"phase10 (b) cli.sample on the results directory trained in (a) "
+            f"{' '.join(TRAIN_CLI_RUN)}: force_path={seen.get('path')} (want cl) "
+            f"sampler_kernel={seen.get('kernel')} (want cl) launches_k1_fwd_bwd_k4={got} "
+            f"(want {want}: the steps and the sampler's score calls) shape={traj.shape} "
+            f"finite={bool(np.isfinite(traj).all())} wall_s={wall:.2f} ok={ok}")
+        if not ok:
+            fail("phase10 (b): the trained weights did not sample through K1 as asked")
+        out["chain10_cli_sample"] = dict(wall_s=wall, launches_k1=got[0])
+
+        gd_trained, params, _, _ = sample_cli.load_model(rf, "best", device=dev)
+        fw = fcl.augment_params_cl(gd_trained.model, params, dev)
+        k1_err = 0.0
+        for label, t in (("fixed", args.noise_level / 1000), ("runtime", 0.37)):
+            x = normal(10 + len(label), (args.parallel_sim, 10, 3), dev)
+            got_f, ref = fcl.fused_force_cl(x, t, fw), fcl.fused_force_cl_reference(x, t, fw)
+            err, scale = (got_f - ref).abs().max().item(), ref.abs().max().item()
+            ok = bool(torch.isfinite(got_f).all()) and err <= TOL_REL * scale
+            log(f"phase10 (b) fused_force_cl on the weights trained in (a) "
+                f"chains={args.parallel_sim} t={label}:{t} max_abs_err={err:.3e} "
+                f"max_rel_err={err / scale:.3e} tol_rel={TOL_REL} ok={ok}")
+            if not ok:
+                fail("phase10 (b): K1 disagrees with its plain version on the trained weights")
+            k1_err = max(k1_err, err)
+
+        # ------------------------------------------------------------ (c)
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        protein_g = chain_dataset(PROTEIN_G_FRAMES, make_chain_components(53, n_slow=5, seed=13),
+                                  seed=0)
+        np.save(os.path.join(data, f"{Molecules.PROTEIN_G.value}-0-c-alpha.npy"),
+                protein_g / 10.0)  # nm, as the loader reads it
+        with open(os.path.join(trained_dir("chain56"), "config.json")) as f:
+            chain56 = json.load(f)
+        results = os.path.join(tmp, "cli")
+        argv = ["--mol", "protein_g", "--data_folder", data, "--results_folder", results,
+                "--tensorboard_folder", os.path.join(tmp, "runs"), "--experiment_name", "cli",
+                "--hidden_features_gnn", str(chain56["hidden_features_gnn"]),
+                "--num_layers_gnn", str(chain56["num_layers_gnn"]),
+                "--use_intrinsic_coords", "true", "--use_abs_coords", "false",
+                "--use_distances", "false", "--conservative", "true",
+                "--batch_size", str(chain56["batch_size"]),
+                "--learning_rate", str(chain56["learning_rate"]),
+                "--train_iter", str(PROTEIN_G_STEPS), "--eval_interval", str(PROTEIN_G_EVAL),
+                "--num_samples", str(chain56["batch_size"]),
+                "--num_samples_final_eval", str(chain56["batch_size"]),
+                "--iterations_on_val", "1", "--log_tensorboard_interval", "10",
+                "--diffusion_steps", str(PROTEIN_G_DIFFUSION_STEPS)]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_trainer = train_cli.main(argv)
+        wall = time.perf_counter() - t0
+        launched = add_counts()
+        rf = cli_trainer.results_folder
+        final = json.load(open(os.path.join(rf, "results-final_iid_val.json")))
+        milestone = json.load(open(os.path.join(rf, "results-1_iid.json")))
+        samples = np.load(os.path.join(rf, "sample-final_iid.npy"))
+        written = all(os.path.exists(os.path.join(rf, f)) for f in (
+            "model-best.msgpack", "model-last.msgpack", "config.json"))
+        ok = (final == {} and milestone == {} and written and launched == (0, 0, 0, 0)
+              and int(load_checkpoint(rf, "last")["step"]) == PROTEIN_G_EVAL
+              and samples.shape == (chain56["batch_size"], 56, 3)
+              and bool(np.isfinite(samples).all()))
+        out["protein_g_cli_train"] = dict(wall_s=wall, steps=PROTEIN_G_STEPS)
+        log(f"phase10 (c) cli.train on a synthetic protein-G data folder at chain56's widths "
+            f"(nf {chain56['hidden_features_gnn']}, {chain56['num_layers_gnn']} layers, batch "
+            f"{chain56['batch_size']}, {PROTEIN_G_DIFFUSION_STEPS} diffusion steps): "
+            f"steps={PROTEIN_G_STEPS} wall_s={wall:.2f} (one evaluation and the final "
+            f"sampling included) "
+            f"results-final_iid_val.json={final} results-1_iid.json={milestone} (protein G: no "
+            f"metric, as in the JAX package) checkpoints_and_config_written={written} "
+            f"final_samples={samples.shape} finite={bool(np.isfinite(samples).all())} "
+            f"launches_k1_fwd_bwd_k4={launched} ok={ok}")
+        if not ok:
+            fail("phase10 (c): the train CLI run failed a check")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, k1_err
 
 
 def main():
@@ -1160,6 +1452,11 @@ def main():
     # ---------------------------------------------------------- phase 9
     cli_rates = cli_phase(reset_counts, add_counts, sps[1000])
     mark("phase9")
+
+    # ---------------------------------------------------------- phase 10
+    training, k1_trained_err = training_phase(reset_counts, add_counts, dev)
+    k1_err = max(k1_err, k1_trained_err)
+    mark("phase10")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -1168,6 +1465,7 @@ def main():
     }))
     log("samples_per_s " + json.dumps(samples_per_s))
     log("cli " + json.dumps(cli_rates))
+    log("training " + json.dumps(training))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

@@ -9,11 +9,23 @@ import torch
 from flax import serialization
 
 from twoforone_torch.utils.artifacts import load_ema_params, trained_dir
-from twoforone_torch.utils.checkpoint import load_checkpoint, msgpack_restore
+from twoforone_torch.utils.checkpoint import msgpack_restore, read_checkpoint
 from twoforone_torch.utils.convert import params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "twoforone_torch")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch CPU thread while a module's tests run. The suite runs
+    several pytest-xdist workers on the host's cores, and torch's thread
+    pool in each of them oversubscribes the cores: the training loops of
+    ``test_torch_train.py`` ran ~50x slower with six workers so."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _leaves(tree, prefix=""):
@@ -27,7 +39,7 @@ def _leaves(tree, prefix=""):
 def test_msgpack_reader_matches_flax_on_chain10():
     """Leaf for leaf, exactly: same tree, same types, dtypes, shapes, bytes."""
     path = os.path.join(trained_dir("chain10"), "model-best.msgpack")
-    ours = load_checkpoint(path)
+    ours = read_checkpoint(path)
     with open(path, "rb") as f:
         ref = serialization.msgpack_restore(f.read())
     ours_l, ref_l = dict(_leaves(ours)), dict(_leaves(ref))
@@ -100,7 +112,10 @@ def test_port_imports_no_jax_flax_or_jax_package():
     for module in ("cli/sample.py", "data/pdb.py", "data/datasets.py", "data/synthetic.py",
                    "data/molecules.py", "evaluate/deeptime_compat.py",
                    "evaluate/evaluators.py", "utils/config.py", "utils/convert.py",
-                   "utils/artifacts.py", "models/__init__.py"):
+                   "utils/artifacts.py", "models/__init__.py", "cli/train.py",
+                   "train/trainer.py", "train/ema.py", "utils/preempt.py",
+                   "utils/checkpoint.py", "evaluate/metrics.py", "evaluate/tica.py",
+                   "evaluate/plots.py", "ops/geometry.py"):
         assert module in scanned, module
     banned = ("jax", "flax", "twoforone_tpu", "optax")
     for path in files:
@@ -113,6 +128,12 @@ def _entry_points(tmp_path):
 
     from twoforone_torch.cli.sample import load_model
     from twoforone_torch.cli.sample import main as sample_cli
+    from twoforone_torch.cli.train import main as train_cli
+    from twoforone_torch.data.datasets import CGDataset
+    from twoforone_torch.data.molecules import FOLDED_PDB_DIR
+    from twoforone_torch.data.pdb import load_pdb
+    from twoforone_torch.train.trainer import Trainer
+    from twoforone_torch.utils.config import TrainConfig
     from twoforone_torch.core.diffusion import GaussianDiffusion
     from twoforone_torch.dynamics.integrators import LangevinSimulation
     from twoforone_torch.dynamics.langevin import LangevinDiffusion, make_diffusion_force_fn
@@ -135,6 +156,20 @@ def _entry_points(tmp_path):
     shutil.copytree(trained_dir("chain10"), results)
     cli_args = ["--model_path", str(results), "--num_samples_eval", "2", "--batch_size_gen",
                 "2", "--sample_steps", "2"]
+    topology = load_pdb(os.path.join(FOLDED_PDB_DIR, "ala2_cg.pdb")).topology
+    blobs = np.random.default_rng(0).normal(size=(3, 8, 5, 3)).astype(np.float32)
+    datasets = tuple(CGDataset(b - b.mean(1, keepdims=True), topology, "alanine_fold1")
+                     for b in blobs)
+    train_cfg = TrainConfig(hidden_features_gnn=8, num_layers_gnn=1, data_folder=None,
+                            results_folder=str(tmp_path / "trained"), batch_size=4)
+    data = tmp_path / "ala2"
+    data.mkdir()
+    np.savez(data / "ala2_cg_2fs_Hmass_2_HBonds.npz", coords=blobs.reshape(-1, 5, 3))
+    train_args = ["--data_folder", str(data), "--results_folder", str(tmp_path / "cli"),
+                  "--tensorboard_folder", str(tmp_path / "runs"), "--hidden_features_gnn", "8",
+                  "--num_layers_gnn", "1", "--batch_size", "4", "--train_iter", "1",
+                  "--eval_interval", "10", "--num_samples_final_eval", "2",
+                  "--diffusion_steps", "100", "--ala2_train_cap", "12"]
 
     return {
         "LangevinDiffusion": lambda **kw: LangevinDiffusion(
@@ -157,6 +192,11 @@ def _entry_points(tmp_path):
         "cli.sample.load_model": lambda **kw: load_model(str(results), "best", **kw),
         "cli.sample.main": lambda **kw: sample_cli(
             cli_args + [f"--{k}={v}" for k, v in kw.items()]),
+        "Trainer": lambda **kw: Trainer(
+            GaussianDiffusion(model=GraphTransformer(5, 8, 1), num_atoms=5), datasets,
+            train_cfg.mol, train_cfg, use_tensorboard=False, evaluators=False, **kw),
+        "cli.train.main": lambda **kw: train_cli(
+            train_args + [f"--{k}={v}" for k, v in kw.items()]),
     }
 
 
@@ -186,7 +226,7 @@ def _model_params(model):
                                   "GaussianDiffusion.sample",
                                   "GaussianDiffusion.make_fused_sample_fn",
                                   "GaussianDiffusion.loss", "cli.sample.load_model",
-                                  "cli.sample.main"])
+                                  "cli.sample.main", "Trainer", "cli.train.main"])
 def test_entry_points_need_cuda_unless_cpu(name, monkeypatch, tmp_path):
     """Default device is CUDA: without it an entry point raises; with
     device="cpu" (the CLI: ``--device=cpu``) it runs on the host."""
@@ -195,3 +235,47 @@ def test_entry_points_need_cuda_unless_cpu(name, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
     build(device="cpu")
+
+
+@pytest.mark.parametrize("name", ["chain10", "ala5"])
+def test_msgpack_writer_gives_flax_bytes(name):
+    """A staged file (written by flax) read by the port and written back by
+    the port's writer: the same bytes. And params_to_jax inverts
+    params_from_jax on its weights, bit for bit."""
+    from twoforone_torch.utils.checkpoint import msgpack_serialize
+    from twoforone_torch.utils.convert import params_to_jax
+
+    path = os.path.join(trained_dir(name), "model-best.msgpack")
+    with open(path, "rb") as f:
+        raw = f.read()
+    assert msgpack_serialize(msgpack_restore(raw)) == raw
+    tree = msgpack_restore(raw)["ema_params"]
+    back = params_to_jax(params_from_jax(tree))
+    assert dict(_leaves(back)).keys() == dict(_leaves(tree)).keys()
+    for key, leaf in _leaves(tree):
+        np.testing.assert_array_equal(dict(_leaves(back))[key], leaf)
+
+
+def test_msgpack_writer_matches_flax_on_every_type(tmp_path):
+    import jax
+
+    from twoforone_torch.utils.checkpoint import (
+        checkpoint_exists, load_checkpoint, msgpack_serialize, save_checkpoint)
+
+    rng = np.random.default_rng(0)
+    tree = {"step": 40, "best_val_loss": float("inf"), "neg": -5, "big": 2**40, "nb": -300,
+            "s": "x" * 40, "b": {"k": rng.normal(size=(200, 70)).astype(np.float32)},
+            "opt": {"0": {"count": np.asarray(7, np.int32), "mu": {}}, "1": {}},
+            "sc": np.float32(2.5), "i64": np.int64(3), "l": [1, 2.0, None, True], "f": 0.1,
+            "n": None, "ints": np.arange(5, dtype=np.int64), "d": np.zeros((0, 3))}
+    ours = msgpack_serialize(tree)
+    assert ours == serialization.msgpack_serialize(jax.tree_util.tree_map(lambda x: x, tree))
+    assert not checkpoint_exists(str(tmp_path), "last")
+    save_checkpoint(str(tmp_path), "last", tree)
+    assert checkpoint_exists(str(tmp_path), "last")
+    assert not os.path.exists(tmp_path / "model-last.msgpack.tmp")
+    back = load_checkpoint(str(tmp_path), "last")
+    assert back["step"] == 40 and back["best_val_loss"] == float("inf")
+    np.testing.assert_array_equal(back["b"]["k"], tree["b"]["k"])
+    with pytest.raises(TypeError):
+        msgpack_serialize({"x": object()})

@@ -39,7 +39,7 @@ from twoforone_torch.data.pdb import save_pdb
 from twoforone_torch.dynamics.langevin import LangevinDiffusion
 from twoforone_torch.evaluate.evaluators import sample_from_model
 from twoforone_torch.models import get_model
-from twoforone_torch.utils.checkpoint import load_checkpoint
+from twoforone_torch.utils.checkpoint import read_checkpoint
 from twoforone_torch.utils.config import load_config
 from twoforone_torch.utils.convert import load_torch_checkpoint_as_params, params_from_jax
 from twoforone_torch.utils.device import resolve_device
@@ -152,7 +152,7 @@ def load_model(model_path: str, checkpoint: str, data_folder=None, device="cuda"
     msgpack = os.path.join(model_path, f"model-{checkpoint}.msgpack")
     torch_pt = os.path.join(model_path, f"model-{checkpoint}.pt")
     if os.path.exists(msgpack):
-        ema_params = load_checkpoint(msgpack)["ema_params"]
+        ema_params = read_checkpoint(msgpack)["ema_params"]
     elif os.path.exists(torch_pt):
         ema_params = load_torch_checkpoint_as_params(torch_pt, model)
     else:

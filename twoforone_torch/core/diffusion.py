@@ -21,8 +21,9 @@ What differs from the JAX module:
 - all coefficient arithmetic stays in float32 tensors read from the buffers,
   so a chain follows the JAX chain step for step.
 
-Not ported: the device mesh, bfloat16 score evaluation, ``init_params``
-(training) and ``make_sample_fn`` (``jit`` has no counterpart).
+Not ported: the device mesh, bfloat16 score evaluation and
+``make_sample_fn`` (``jit`` has no counterpart). ``init_params`` is
+:func:`twoforone_torch.models.graph_transformer.init_params`.
 """
 
 from __future__ import annotations
@@ -366,6 +367,15 @@ class GaussianDiffusion:
             make_buffers(self.timesteps, self.beta_schedule, self.loss_weights),
         )
 
+    def buffers_on(self, device) -> DiffusionBuffers:
+        """The buffers on ``device``, moved there once: a training step reads
+        them at every call."""
+        cache = self.__dict__.setdefault("_buffers_on", {})
+        device = torch.device(device)
+        if device not in cache:
+            cache[device] = self.buffers.to(device)
+        return cache[device]
+
     # -- model plumbing ------------------------------------------------------
     def score_fn(self, params, device="cuda") -> ScoreFn:
         """Score closure ``(x, t_norm) -> eps_hat`` of the plain network with
@@ -382,21 +392,47 @@ class GaussianDiffusion:
     def loss(self, params, mol, generator, device="cuda"):
         """Training loss on raw (un-normalized) coordinates: centre and
         scale, draw t from the loss-weight multinomial and the noise from
-        ``generator``; returns ``(loss, {"kl_at_T": kl})``. The value only:
-        differentiating it with respect to the weights comes with training.
-        """
+        ``generator``; returns ``(loss, {"kl_at_T": kl})``. The value only,
+        for weights given as the flax parameter tree; :meth:`net_loss` is
+        the differentiable form on a live module."""
         device = resolve_device(device)
+        return self._loss(self.score_fn(params, device), mol, generator, None, None, device)
+
+    def net_loss(self, net, mol, generator=None, t=None, noise=None,
+                 create_graph: bool = True):
+        """The training loss of :meth:`loss` on the module ``net`` (a
+        GraphTransformer shaped like ``self.model``), on ``net``'s device,
+        differentiable with respect to its parameters: in conservative mode
+        the force -dE/dx keeps its graph (``create_graph``; False gives the
+        value only, as an evaluation needs).
+
+        ``t`` (B,) and ``noise`` (B, N, 3) may be given, as another
+        implementation drew them; what is not given is drawn from
+        ``generator``, t first. Returns ``(loss, {"kl_at_T": kl})``."""
+        from twoforone_torch.models.graph_transformer import score_forward
+
+        def score_fn(x, t_norm):
+            return score_forward(net, x, t_norm, create_graph=create_graph)
+
+        device = next(net.parameters()).device
+        return self._loss(score_fn, mol, generator, t, noise, device)
+
+    def _loss(self, score_fn, mol, generator, t, noise, device):
         mol = center_zero(torch.as_tensor(mol, dtype=torch.float32, device=device))
         mol = mol / self.norm_factor
         b, n, d = mol.shape
         if n != self.num_atoms or d != 3:
             raise ValueError(f"Molecule shape must be {(self.num_atoms, 3)}")
-        buf = self.buffers.to(device)
-        t = sample_timesteps(buf, generator, b, self.t_diff_interval, device)
-        noise = torch.randn(mol.shape, generator=generator, dtype=torch.float32, device=device)
+        buf = self.buffers_on(device)
+        if t is None:
+            t = sample_timesteps(buf, generator, b, self.t_diff_interval, device)
+        if noise is None:
+            noise = torch.randn(mol.shape, generator=generator, dtype=torch.float32,
+                                device=device)
+        t = torch.as_tensor(t, dtype=torch.long, device=device)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
         kl = normal_kl_at_T(buf, mol)
-        loss = p_losses(buf, self.score_fn(params, device), mol, t, noise,
-                        self.objective, self.loss_type)
+        loss = p_losses(buf, score_fn, mol, t, noise, self.objective, self.loss_type)
         return loss, {"kl_at_T": kl}
 
     # -- sampling ------------------------------------------------------------

@@ -273,12 +273,17 @@ def init_params(model: GraphTransformer, seed: int) -> dict:
 
 
 def score_forward(model: GraphTransformer, x: torch.Tensor, t: torch.Tensor,
-                  return_energy: bool = False) -> torch.Tensor:
+                  return_energy: bool = False, create_graph: bool = False) -> torch.Tensor:
     """Model forward in "score" convention: returns (B, N, 3) noise/forces.
 
     Centres the input and, in conservative mode, differentiates the summed
     per-node energy with respect to the *centred* coordinates (no projection
     afterwards), as the JAX ``score_forward`` does.
+
+    By default the force is a value: x is detached and the graph of dE/dx is
+    dropped (sampling and dynamics). ``create_graph=True`` keeps x attached
+    and builds the graph of dE/dx, so that a loss on the force can be
+    differentiated with respect to the weights (training).
     """
     xc = center_zero(x)
     if not model.conservative:
@@ -286,9 +291,13 @@ def score_forward(model: GraphTransformer, x: torch.Tensor, t: torch.Tensor,
     if return_energy:
         return model(xc, t, return_energy=True)
     with torch.enable_grad():
-        xc = xc.detach().requires_grad_(True)
+        if not create_graph:
+            xc = xc.detach()
+        if not xc.requires_grad:
+            xc = xc.requires_grad_(True)
         energy = model(xc, t, return_energy=True).sum()
-        (grad,) = torch.autograd.grad(energy, xc, allow_unused=True)
+        (grad,) = torch.autograd.grad(energy, xc, create_graph=create_graph,
+                                      allow_unused=True)
     if grad is None:
         # The zero-feature edge configuration without absolute coordinates has
         # an energy that does not depend on x: its force is zero.

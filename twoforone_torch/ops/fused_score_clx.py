@@ -33,12 +33,11 @@ with the plain one on the card is measured by ``chip_smoke.py``.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from twoforone_torch.ops.attention_cl_core import cl_attention_core
 from twoforone_torch.ops.fused_score_cl import VERIFIED_MAX_N, augment_params_cl, eps_hat_cl
+from twoforone_torch.utils.device import float32_products
 
 CLX_MIN_CHAINS = 256
 CLX_MAX_N = 32
@@ -67,19 +66,6 @@ def auto_fused_path(model, n_chains, device, other_edges: str = "plain") -> str:
     if model.num_beads <= CLX_MAX_N and n_chains is not None and n_chains >= CLX_MIN_CHAINS:
         return "clx"
     return "plain"
-
-
-@contextlib.contextmanager
-def _float32_products():
-    """cuBLAS products in float32, not TF32, for the duration of one
-    evaluation, and the caller's setting back afterwards. A graph keeps the
-    kernels chosen at its capture, so this also fixes what every replay runs."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 class GraphedEvaluation:
@@ -165,7 +151,7 @@ def make_clx_force_fn(model, params, t_norm=None, device="cuda", graphed=True):
     folded = augment_params_cl(model, params, device)
 
     def eps_hat(x, t):
-        with _float32_products():
+        with float32_products():
             return eps_hat_cl(x, t, folded, cl_attention_core)
 
     graph = None

@@ -1,7 +1,17 @@
-"""Molecular geometry ops (port of ``twoforone_tpu/ops/geometry.py``)."""
+"""Molecular geometry ops (port of ``twoforone_tpu/ops/geometry.py``).
+
+The SO(3) augmentation of training, and the geometry the evaluators read:
+pairwise distances and dihedrals with mdtraj's conventions, so that scores
+stay comparable with the golden references. Every function takes and
+returns torch tensors; the evaluators hand them float32 coordinates, as the
+JAX package computes them in float32.
+"""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -11,3 +21,92 @@ def center_zero(x: torch.Tensor) -> torch.Tensor:
     ``x``: (..., N, 3); the mean is removed over the bead axis.
     """
     return x - x.mean(dim=-2, keepdim=True)
+
+
+def rotation_matrices(thetas: torch.Tensor) -> torch.Tensor:
+    """Composed Euler rotations R = Rz @ Ry @ Rx from the angles ``thetas``
+    (3, B) (rows: x, y, z) -> (B, 3, 3): the JAX package's matrices for the
+    same angles."""
+    c, s = torch.cos(thetas), torch.sin(thetas)
+    zeros, ones = torch.zeros_like(c[0]), torch.ones_like(c[0])
+    b = thetas.shape[1]
+    rx = torch.stack([ones, zeros, zeros, zeros, c[0], s[0], zeros, -s[0], c[0]],
+                     dim=-1).reshape(b, 3, 3)
+    ry = torch.stack([c[1], zeros, -s[1], zeros, ones, zeros, s[1], zeros, c[1]],
+                     dim=-1).reshape(b, 3, 3)
+    rz = torch.stack([c[2], s[2], zeros, -s[2], c[2], zeros, zeros, zeros, ones],
+                     dim=-1).reshape(b, 3, 3)
+    # x -> Rx x, then Ry, then Rz (on column vectors).
+    return torch.einsum("bij,bjk,bkl->bil", rz, ry, rx)
+
+
+def random_rotation_matrices(generator: torch.Generator, batch: int) -> torch.Tensor:
+    """Per-sample rotations with each Euler angle ~ U(-pi, pi), drawn from
+    ``generator`` on its device: (batch, 3, 3) float32."""
+    u = torch.rand((3, batch), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return rotation_matrices(u * (2.0 * math.pi) - math.pi)
+
+
+def rotate(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Apply ``rot`` (B, 3, 3) to each molecule of ``x`` (B, N, 3)."""
+    return torch.einsum("bij,bnj->bni", rot, x)
+
+
+def random_rotation(x: torch.Tensor, generator: torch.Generator,
+                    return_matrices: bool = False):
+    """Apply an independent random rotation to each molecule in the batch."""
+    rot = random_rotation_matrices(generator, x.shape[0])
+    out = rotate(x, rot)
+    if return_matrices:
+        return out, rot
+    return out
+
+
+def reverse_rotation(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Undo :func:`random_rotation` (rotations are orthogonal: inverse = transpose)."""
+    return torch.einsum("bji,bnj->bni", rot, x)
+
+
+def pairwise_distances(x: torch.Tensor) -> torch.Tensor:
+    """Full (..., N, N) Euclidean pairwise-distance matrix."""
+    diff = x[..., :, None, :] - x[..., None, :, :]
+    return torch.linalg.norm(diff, dim=-1)
+
+
+def triu_indices(n: int, offset: int) -> tuple[np.ndarray, np.ndarray]:
+    return np.triu_indices(n, k=offset)
+
+
+def pwd_triu_batch(x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """Upper-triangle pairwise distances for a batch: (B, N, 3) -> (B, n_pairs)."""
+    assert x.ndim == 3 and x.shape[-1] == 3, "Shape mismatch"
+    iu, ju = triu_indices(x.shape[1], offset)
+    return pairwise_distances(x)[:, torch.from_numpy(iu), torch.from_numpy(ju)]
+
+
+def dihedrals(xyz: torch.Tensor, indices) -> torch.Tensor:
+    """Signed dihedral angles with mdtraj's sign convention
+    (``mdtraj.compute_dihedrals``):
+
+      b1 = p1-p0, b2 = p2-p1, b3 = p3-p2
+      angle = atan2( (b1 x b2) . b3 * |b2|, (b2 x b3) . (b1 x b2) )
+
+    ``xyz``: (B, N, 3); ``indices``: (M, 4) int -> (B, M) radians in [-pi, pi].
+    """
+    idx = torch.as_tensor(np.asarray(indices), dtype=torch.long)
+    p = xyz[:, idx, :]  # (B, M, 4, 3)
+    b1 = p[..., 1, :] - p[..., 0, :]
+    b2 = p[..., 2, :] - p[..., 1, :]
+    b3 = p[..., 3, :] - p[..., 2, :]
+    c1 = torch.linalg.cross(b2, b3)
+    c2 = torch.linalg.cross(b1, b2)
+    p1 = torch.sum(b1 * c1, dim=-1) * torch.linalg.norm(b2, dim=-1)
+    p2 = torch.sum(c1 * c2, dim=-1)
+    return torch.atan2(p1, p2)
+
+
+def sliding_dihedral_indices(num_beads: int) -> np.ndarray:
+    """All consecutive 4-mers along the chain: the TICA feature dihedrals."""
+    ind = np.arange(0, num_beads - 3)
+    return np.stack((ind, ind + 1, ind + 2, ind + 3)).T

@@ -14,7 +14,7 @@ import os
 from typing import Optional
 
 from twoforone_torch.data.molecules import ASSETS_DIR
-from twoforone_torch.utils.checkpoint import load_checkpoint
+from twoforone_torch.utils.checkpoint import read_checkpoint
 
 _TRAINED = os.path.join(ASSETS_DIR, "trained")
 
@@ -41,4 +41,4 @@ def load_ema_params(name: str) -> dict:
     """EMA weights of a staged artifact as a nested dict of numpy arrays
     (the flax parameter tree). Raises FileNotFoundError when unstaged."""
     path = os.path.join(trained_dir(name), "model-best.msgpack")
-    return load_checkpoint(path)["ema_params"]
+    return read_checkpoint(path)["ema_params"]

@@ -1,9 +1,16 @@
-"""Reader for flax msgpack checkpoints, in pure Python with numpy.
+"""Reader and writer for flax msgpack checkpoints, in pure Python with numpy.
 
 The JAX package writes checkpoints with ``flax.serialization.msgpack_serialize``
 (``twoforone_tpu/utils/checkpoint.py``): a msgpack map tree whose array leaves
-are msgpack extension objects. This module decodes that format without
-``flax`` or the ``msgpack`` package, neither of which the GPU host has.
+are msgpack extension objects. This module decodes and encodes that format
+without ``flax`` or the ``msgpack`` package, neither of which the GPU host
+has, so a checkpoint written by either package loads in the other.
+
+:func:`save_checkpoint`, :func:`load_checkpoint` and :func:`checkpoint_exists`
+keep the JAX package's names and paths (``<results_folder>/model-<name>.msgpack``,
+written through a ``.tmp`` file and ``os.replace``); the tree is the state
+dict flax writes: nested dicts with string keys (a tuple becomes a dict
+keyed ``"0"``, ``"1"``, ...), numpy arrays and Python scalars.
 
 Wire format handled (msgpack spec, plus flax's extension types):
 
@@ -18,6 +25,7 @@ Wire format handled (msgpack spec, plus flax's extension types):
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -143,7 +151,126 @@ def msgpack_restore(data: bytes):
     return _unchunk(tree)
 
 
-def load_checkpoint(path: str):
+def read_checkpoint(path: str):
     """Read a ``model-*.msgpack`` checkpoint file into a nested dict."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+class _Writer:
+    """msgpack encoder with the choices of the ``msgpack`` package as flax
+    calls it: the shortest integer form, floats as float64, strings as str,
+    bytes as bin; dict keys in sorted order, as JAX's tree utilities leave
+    them; numpy arrays as extension type 1 and numpy scalars as type 3."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n, fix_base, fix_max, codes):
+        if fix_base is not None and n < fix_max:
+            self.out.append(fix_base | n)
+            return
+        for (limit, code, fmt) in codes:
+            if n < limit:
+                self.out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack object too large ({n})")
+
+    def _int(self, x: int):
+        if 0 <= x < 0x80 or -32 <= x < 0:
+            self.out += struct.pack(">b" if x < 0 else ">B", x)
+        elif x >= 0:
+            self._head(x, None, 0, ((1 << 8, 0xCC, ">B"), (1 << 16, 0xCD, ">H"),
+                                    (1 << 32, 0xCE, ">I"), (1 << 64, 0xCF, ">Q")))
+        else:
+            for bits, code, fmt in ((8, 0xD0, ">b"), (16, 0xD1, ">h"), (32, 0xD2, ">i"),
+                                    (64, 0xD3, ">q")):
+                if x >= -(1 << (bits - 1)):
+                    self.out += bytes([code]) + struct.pack(fmt, x)
+                    return
+            raise ValueError(f"integer {x} does not fit msgpack")
+
+    def _ext(self, code: int, payload: bytes):
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            self.out.append(0xD4 + n.bit_length() - 1)
+        else:
+            self._head(n, None, 0, ((1 << 8, 0xC7, ">B"), (1 << 16, 0xC8, ">H"),
+                                    (1 << 32, 0xC9, ">I")))
+        self.out += struct.pack(">b", code) + payload
+
+    def pack(self, x):
+        if x is None:
+            self.out.append(0xC0)
+        elif isinstance(x, np.ndarray):
+            self._ext(_EXT_NDARRAY, _ndarray_bytes(x))
+        elif isinstance(x, np.generic):
+            self._ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(x)))
+        elif isinstance(x, bool):
+            self.out.append(0xC3 if x else 0xC2)
+        elif isinstance(x, int):
+            self._int(x)
+        elif isinstance(x, float):
+            self.out += b"\xcb" + struct.pack(">d", x)
+        elif isinstance(x, str):
+            raw = x.encode("utf-8")
+            self._head(len(raw), 0xA0, 32, ((1 << 8, 0xD9, ">B"), (1 << 16, 0xDA, ">H"),
+                                            (1 << 32, 0xDB, ">I")))
+            self.out += raw
+        elif isinstance(x, (bytes, bytearray)):
+            self._head(len(x), None, 0, ((1 << 8, 0xC4, ">B"), (1 << 16, 0xC5, ">H"),
+                                         (1 << 32, 0xC6, ">I")))
+            self.out += x
+        elif isinstance(x, (list, tuple)):
+            self._head(len(x), 0x90, 16, ((1 << 16, 0xDC, ">H"), (1 << 32, 0xDD, ">I")))
+            for v in x:
+                self.pack(v)
+        elif isinstance(x, dict):
+            self._head(len(x), 0x80, 16, ((1 << 16, 0xDE, ">H"), (1 << 32, 0xDF, ">I")))
+            for k in sorted(x):
+                self.pack(k)
+                self.pack(x[k])
+        else:
+            raise TypeError(f"cannot encode {type(x).__name__} as msgpack")
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    """flax's payload of an array: the msgpack array (shape, dtype name, C-order bytes)."""
+    if arr.dtype.hasobject:
+        raise ValueError("object arrays cannot be serialized")
+    w = _Writer()
+    w.pack([list(arr.shape), arr.dtype.name, np.ascontiguousarray(arr).tobytes()])
+    return bytes(w.out)
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode nested dicts of numpy arrays and Python scalars as flax does
+    (``flax.serialization.msgpack_serialize`` of that state dict)."""
+    w = _Writer()
+    w.pack(tree)
+    return bytes(w.out)
+
+
+def checkpoint_path(results_folder: str, name: str) -> str:
+    return os.path.join(results_folder, f"model-{name}.msgpack")
+
+
+def save_checkpoint(results_folder: str, name: str, state: dict) -> str:
+    """Write ``state`` to ``<results_folder>/model-<name>.msgpack`` through a
+    ``.tmp`` file and an atomic rename; returns the path."""
+    os.makedirs(results_folder, exist_ok=True)
+    path = checkpoint_path(results_folder, name)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(state))
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(results_folder: str, name: str = "last") -> dict:
+    """Read ``<results_folder>/model-<name>.msgpack`` into a nested dict."""
+    return read_checkpoint(checkpoint_path(results_folder, name))
+
+
+def checkpoint_exists(results_folder: str, name: str = "last") -> bool:
+    return os.path.exists(checkpoint_path(results_folder, name))

@@ -44,6 +44,11 @@ graphtransformer.layers.{i}.1.0.fn.2.*                layers_{i}_ff.fc2.*
 graphtransformer.layers.{i}.1.1.proj.0.weight         layers_{i}_ff_res.proj.kernel^T
 
 The DDPM buffers are not read: the port rebuilds them from the config.
+
+**Out of the port's module.** :func:`params_to_jax` is the inverse of
+:func:`params_from_jax`: the trainer writes its weights, its EMA and the
+optimizer's moments as flax trees through it, so its checkpoints load in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -78,6 +83,28 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
             name = "weight"
         out[".".join(mod + [name])] = torch.tensor(arr)
     return out
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """torch state dict -> flax parameter tree (nested dicts of float32
+    numpy arrays): the inverse of :func:`params_from_jax`. Any tensors keyed
+    and shaped like the state dict map the same way (the optimizer's
+    moments become optax's ``mu`` and ``nu`` trees)."""
+    tree: dict = {}
+    for key, t in state.items():
+        arr = t.detach().to("cpu", torch.float32).numpy().copy()  # not a view of t
+        *mod, name = key.split(".")
+        if mod[-1] == "edges_to_kv":
+            mod, name = mod[:-1], f"edges_to_kv_{'kernel' if name == 'weight' else name}"
+        elif name == "weight":
+            name = "kernel" if arr.ndim == 2 else "scale"
+        if arr.ndim == 2:
+            arr = arr.T
+        node = tree
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
 
 
 def _strip_prefix(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -28,3 +29,17 @@ def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of a card: the grid of a kernel that keeps a
     fixed number of thread blocks resident follows it."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@contextlib.contextmanager
+def float32_products():
+    """cuBLAS and cuDNN products in float32, not TF32, while the block runs,
+    and the caller's settings back afterwards. A CUDA graph keeps the kernels
+    chosen at its capture, so this also fixes what every replay runs."""
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
