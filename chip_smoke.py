@@ -29,7 +29,11 @@ models, with bench.py's settings:
   fused force kernel for every edge configuration);
 - training: the trainer at chain10's published configuration on synthetic
   chignolin frames, the sampling CLI on the weights it wrote (the fused
-  force kernel), and the train CLI on a synthetic protein-G data folder.
+  force kernel), and the train CLI on a synthetic protein-G data folder;
+- the positive control: the Langevin stage of the chain controls on the
+  staged chain10 and chain20 weights (the fused force kernel and the
+  attention-core path), in resumable segments, scored by TIC JS and the
+  basin-exchange report; and ``run_chain_control`` at chain10's widths.
 
 Phases (any failure exits non-zero):
 
@@ -72,7 +76,20 @@ Phases (any failure exits non-zero):
    through the fused force kernel (path, launches, finiteness) and the kernel
    against its plain version on those weights; (c) ``cli.train`` on a
    synthetic protein-G data folder at chain56's widths (files, empty results:
-   protein G has no metric).
+   protein G has no metric);
+11. the positive control's path: (a) chignolin (K1) and trp-cage (clx) on
+   the staged weights: 1000 initial states by the ancestral chain through
+   ``make_fused_sample_fn(kernel="auto")``, then ``_segmented_langevin_stage``
+   (the resolved path, launches against score calls and steps, finiteness,
+   TIC JS <= 0.10, the ergodicity report, wall seconds); (b) a segmented run
+   killed and resumed in a fresh ``LangevinDiffusion`` equals one
+   ``sample()`` bit for bit; (c) ``run_chain_control`` at chain10's widths
+   with a cut budget (the JAX function's keys, finite values, no launch in
+   training, K1 launches = Langevin steps, its stage files) and its resume
+   (no launch, the same arrays); (d) ``trace`` around chignolin steps names
+   K1's kernel; (e) the symmetry checkers through K1 against the plain
+   network; (f) ``kabsch_rmsd`` on the card against the host. The stages are
+   timed by ``PhaseTimer``.
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -750,6 +767,309 @@ def training_phase(reset_counts, add_counts, dev):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out, k1_err
+
+
+# Phase 11, the positive control's path. (a) The Langevin stage of the chain
+# controls on the staged weights, the protocol of the JAX package's
+# scripts/backfill_ergodicity.py through the port: the model rebuilt as
+# run_chain_control builds it (norm factor: the train split's std at its
+# defaults, 400 000 frames at seed 0), initial states drawn by the ancestral
+# chain through make_fused_sample_fn(kernel="auto"), then
+# _segmented_langevin_stage on the LangevinDiffusion run_chain_control
+# builds, scored by its SyntheticTicScorer and the basin-exchange report.
+# (b) Segmenting invisible on the card: one sample() against a half-length
+# run (the kill) resumed in a fresh LangevinDiffusion, bit for bit. (c)
+# run_chain_control at chain10's published widths with a cut budget, and
+# its resume. (d) torch.profiler around chignolin steps. (e) The symmetry
+# checkers on K1 and on the plain network. (f) kabsch_rmsd on the card.
+# Every step count is cut from the staged runs' 50 000; no width is.
+CONTROL_NORM_FRAMES = 400_000  # run_chain_control's default n_data
+CONTROL_EVAL_SAMPLES = 50_000  # and eval_samples
+CONTROL_CHAINS = 1000
+# (beads, Langevin steps, save interval, the path fused="auto" must take,
+# the sampler's kernel): 40 000 frames each, in 4 segments.
+STAGED_CONTROLS = ((10, 10_000, 250, "cl"), (20, 5_000, 125, "clx"))
+STAGED_SEGMENTS = 4
+TIC_JS_BAR = 0.10  # physics_bars_ok's bar on tic_js_langevin
+SEGMENT_CHAINS, SEGMENT_STEPS, SEGMENT_SAVE = 100, 2000, 250
+CONTROL_RUN = dict(n_beads=10, train_iter=200, n_data=20_000, num_samples=1024,
+                   langevin_chains=1000, langevin_steps=2000, eval_samples=20_000,
+                   fused="auto")
+# The keys run_chain_control's results carry: the JAX function's
+# (tests/test_torch_positive_control.py holds the two sets equal).
+CHAIN_CONTROL_KEYS = (
+    "langevin_chains", "langevin_dt_scale", "langevin_ergodic", "langevin_max_occupancy_error",
+    "langevin_min_hop_fraction", "langevin_steps", "nonfinite_frac_iid",
+    "nonfinite_frac_langevin", "pwd_js_iid", "results_folder", "t_noise_langevin",
+    "tic_js_floor", "tic_js_iid", "tic_js_langevin", "val_loss",
+)
+TRACE_STEPS = 20  # traced, after as many untraced
+TRACE_SAVE = 10
+TOL_EQUIVARIANCE = 1e-4  # of the mean |eps| on the checkers' inputs
+TOL_KABSCH = 1e-5  # Angstrom, card against host
+
+
+def positive_control_phase(reset_counts, add_counts, counts, dev):
+    """Phase 11 (a)-(f); returns the numbers it measured."""
+    import shutil
+    import tempfile
+
+    from twoforone_torch.data.synthetic import chain_trajectory
+    from twoforone_torch.dynamics.segmented import segmented_sample
+    from twoforone_torch.evaluate.ergodicity import slow_torsion_ergodicity
+    from twoforone_torch.evaluate.evaluators import RmsdEvaluator
+    from twoforone_torch.ops import fused_score_cl as fcl
+    from twoforone_torch.ops.geometry import kabsch_rmsd
+    from twoforone_torch.train import positive_control as pc
+    from twoforone_torch.train.trainer import Trainer
+    from twoforone_torch.utils.artifacts import load_ema_params, load_results
+    from twoforone_torch.utils.equivariance import (
+        check_reflection_equivariance,
+        check_rotation_equivariance,
+        check_translation_invariance,
+    )
+    from twoforone_torch.utils.profiling import PhaseTimer, trace
+
+    timer = PhaseTimer()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    try:
+        # ------------------------------------------------------------ (a)
+        staged = {}
+        for n, steps, save, path in STAGED_CONTROLS:
+            name = f"chain{n}"
+            comps = pc.chain_control_components(n)
+            with timer.phase(f"(a) {name} reference data and scorer (host)"):
+                traj = chain_trajectory(CONTROL_NORM_FRAMES, comps, seed=0)
+                norm = float(traj[:int(0.7 * CONTROL_NORM_FRAMES)].std())
+                del traj
+                scorer, floor = pc.chain_control_scorer(comps, CONTROL_NORM_FRAMES,
+                                                        CONTROL_EVAL_SAMPLES, seed=0)
+            gd = pc.chain_control_diffusion(n, norm)
+            params = load_ema_params(name)
+            fn = gd.make_fused_sample_fn(params, CONTROL_CHAINS, kernel="auto", device=dev)
+            if fn.kernel != path:
+                fail(f"phase11 (a) {name}: kernel='auto' resolved to {fn.kernel!r}")
+            reset_counts()
+            with timer.phase(f"(a) {name} initial states ({path}, ancestral)"):
+                init = fn(torch.Generator(device=dev).manual_seed(3)).cpu().numpy()
+            sampler = add_counts()
+            ld = pc.chain_control_langevin(gd, params, init, n, steps, save, seed=0,
+                                           fused="auto", log=False, device=dev)
+            if ld.force_fn.mode != path:
+                fail(f"phase11 (a) {name}: fused='auto' resolved to {ld.force_fn.mode!r}")
+            stage = f"langevin_{name}"
+            reset_counts()
+            t0 = time.perf_counter()
+            with timer.phase(f"(a) {name} Langevin ({path}, segmented)"):
+                frames = pc._segmented_langevin_stage(ld, tmp, stage, resume=False,
+                                                      segment_steps=steps // STAGED_SEGMENTS)
+            wall = time.perf_counter() - t0
+            lang = add_counts()
+            left = [f for f in os.listdir(tmp) if f.startswith(stage)]
+            with timer.phase(f"(a) {name} scoring (host)"):
+                finite = bool(np.isfinite(frames).all())
+                tic = scorer.tic_js(frames)
+                erg = slow_torsion_ergodicity(frames.reshape(CONTROL_CHAINS, -1, n, 3), comps)
+            staged_tic = load_results(name)["tic_js_langevin"]
+            per_call = PER_CALL[path]
+            want_sampler = tuple(c * gd.timesteps for c in per_call)
+            want_lang = tuple(c * steps for c in per_call)
+            ok = (sampler == want_sampler and lang == want_lang and finite
+                  and bool(np.isfinite(init).all()) and tic <= TIC_JS_BAR and not left
+                  and frames.shape == (CONTROL_CHAINS * steps // save, n, 3))
+            staged[name] = dict(
+                norm_factor=norm, tic_js_floor=floor, tic_js_langevin=tic,
+                staged_tic_js_langevin=staged_tic,
+                langevin_min_hop_fraction=erg["min_hop_fraction"],
+                langevin_max_occupancy_error=erg["max_occupancy_error"],
+                langevin_ergodic=erg["ergodic"], steps=steps, chains=CONTROL_CHAINS,
+                frames=len(frames), langevin_wall_s=wall, steps_per_s=steps / wall, path=path)
+            log(f"phase11 (a) {name} staged weights, norm_factor={norm:.6f} path={path} "
+                f"initial states: {CONTROL_CHAINS} by the {gd.timesteps}-step ancestral chain, "
+                f"launches_k1_fwd_bwd_k4={sampler} (want {want_sampler}); Langevin "
+                f"{steps} steps x {CONTROL_CHAINS} chains in {STAGED_SEGMENTS} segments: "
+                f"wall_s={wall:.2f} steps_per_s={steps / wall:.2f} launches={lang} (want "
+                f"{want_lang}) finite={finite} segment_files_left={left} tic_js_floor={floor:.4f} "
+                f"tic_js_langevin={tic:.4f} (bar {TIC_JS_BAR}; staged 50 000-step run "
+                f"{staged_tic:.4f}) ergodicity: min_hop_fraction="
+                f"{erg['min_hop_fraction']:.3f} max_occupancy_error="
+                f"{erg['max_occupancy_error']:.3f} ergodic={erg['ergodic']} "
+                f"per_torsion_hops={ {k: round(v['hop_fraction'], 3) for k, v in erg['per_torsion'].items()} } "
+                f"ok={ok}")
+            if not ok:
+                fail(f"phase11 (a) {name}: wrong launch count, a non-finite frame, segment "
+                     f"files left, or TIC JS above {TIC_JS_BAR}")
+            if n == 10:
+                gd10, params10, init10, frames10 = gd, params, init, frames
+        out["staged"] = staged
+
+        # ------------------------------------------------------------ (b)
+        def segment_ld(steps, save=SEGMENT_SAVE):
+            return pc.chain_control_langevin(gd10, params10, init10[:SEGMENT_CHAINS], 10, steps,
+                                             save, seed=0, fused="auto", log=False, device=dev)
+
+        folder = os.path.join(tmp, "segments")
+        os.makedirs(folder)
+        reset_counts()
+        with timer.phase("(b) one sample() and a killed, resumed segmented run"):
+            one_shot = segment_ld(SEGMENT_STEPS).sample()
+            segmented_sample(segment_ld(SEGMENT_STEPS // 2), folder, "lang",
+                             segment_steps=SEGMENT_STEPS // 4)
+            state = np.load(os.path.join(folder, "lang_state.npz"))
+            resumed = segmented_sample(segment_ld(SEGMENT_STEPS), folder, "lang",
+                                       segment_steps=SEGMENT_STEPS // 4, resume=True)
+        got = add_counts()
+        same = bool(np.array_equal(one_shot, resumed))
+        want = (2 * SEGMENT_STEPS, 0, 0, 0)
+        ok = same and got == want and int(state["t"]) == SEGMENT_STEPS // 2 and \
+            state["key"].dtype == np.uint8
+        log(f"phase11 (b) chignolin {SEGMENT_CHAINS} chains {SEGMENT_STEPS} steps through K1: "
+            f"sample() against a {SEGMENT_STEPS // 2}-step segmented run resumed in a fresh "
+            f"LangevinDiffusion: same_bits={same} checkpointed CUDA generator state "
+            f"{state['key'].size} bytes at step {int(state['t'])} launches={got} (want {want}) "
+            f"ok={ok}")
+        if not ok:
+            fail("phase11 (b): the resumed segmented run differs from one sample()")
+
+        # ------------------------------------------------------------ (c)
+        train = Trainer.train
+        during_training = []
+
+        def recorded_train(self):
+            train(self)
+            during_training.append(counts())
+
+        Trainer.train = recorded_train
+        try:
+            results_folder = os.path.join(tmp, "chain10_control")
+            reset_counts()
+            t0 = time.perf_counter()
+            with timer.phase("(c) run_chain_control"):
+                res = pc.run_chain_control(results_folder=results_folder, device=dev,
+                                           **CONTROL_RUN)
+            wall = time.perf_counter() - t0
+            after = add_counts()
+            files = sorted(os.listdir(results_folder))
+            post = [f for f in files if f.startswith("post_")]
+            arrays = {f: np.load(os.path.join(results_folder, f)) for f in post}
+            reset_counts()
+            t0 = time.perf_counter()
+            with timer.phase("(c) run_chain_control, resume=True"):
+                again = pc.run_chain_control(results_folder=results_folder, resume=True,
+                                             device=dev, **CONTROL_RUN)
+            wall_resume = time.perf_counter() - t0
+            resumed_counts = add_counts()
+        finally:
+            Trainer.train = train
+        same = all(np.array_equal(arrays[f], np.load(os.path.join(results_folder, f)))
+                   for f in post) and again == res
+        finite = all(np.isfinite(v) for k, v in res.items() if k != "results_folder")
+        steps = CONTROL_RUN["langevin_steps"]
+        ok = (set(res) == set(CHAIN_CONTROL_KEYS) and finite
+              and during_training == [(0, 0, 0, 0), (0, 0, 0, 0)]
+              and after == (steps, 0, 0, 0) and resumed_counts == (0, 0, 0, 0) and same
+              and "post_iid.npy" in post and any(f.startswith("post_langevin_") for f in post)
+              and not [f for f in files if "_seg" in f or "_state" in f])
+        out["run_chain_control"] = dict(res, wall_s=wall, resume_wall_s=wall_resume)
+        log(f"phase11 (c) run_chain_control({CONTROL_RUN}) wall_s={wall:.2f} "
+            f"results={json.dumps({k: v for k, v in res.items() if k != 'results_folder'})} "
+            f"keys_equal_jax={set(res) == set(CHAIN_CONTROL_KEYS)} finite={finite} "
+            f"launches_in_training={during_training[0]} launches_total={after} "
+            f"(want ({steps}, 0, 0, 0)) post_files={post}; resume=True: wall_s="
+            f"{wall_resume:.2f} launches={resumed_counts} same_arrays_and_results={same} "
+            f"ok={ok}")
+        if not ok:
+            fail("phase11 (c): run_chain_control failed a check")
+
+        # ------------------------------------------------------------ (d)
+        ld = segment_ld(2 * TRACE_STEPS, TRACE_SAVE)
+        ld.sim.simulate(sub_interval=TRACE_STEPS)  # warm-up outside the trace
+        logdir = os.path.join(tmp, "trace")
+        reset_counts()
+        with timer.phase("(d) traced chignolin steps"), trace(logdir) as prof:
+            ld.sim.simulate(sub_interval=TRACE_STEPS)
+            torch.cuda.synchronize()
+        got = add_counts()
+        path = os.path.join(logdir, "trace.json")
+        with open(path) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        k1_events = [e for e in prof.key_averages() if "fused_force_cl_kernel" in e.key]
+        k1_calls = sum(e.count for e in k1_events)
+        k1_device_ms = sum(e.device_time_total for e in k1_events) / 1e3
+        # The launch counters say how many steps ran; the profiler's own count
+        # may miss a kernel at the start of its window (19 of 20 seen once).
+        ok = ("fused_force_cl_kernel" in " ".join(str(n) for n in names)
+              and got == (TRACE_STEPS, 0, 0, 0) and k1_calls >= 1)
+        out["trace"] = dict(bytes=os.path.getsize(path), k1_calls=k1_calls,
+                            k1_device_ms_per_call=k1_device_ms / max(1, k1_calls))
+        log(f"phase11 (d) trace() around {TRACE_STEPS} chignolin steps through K1 "
+            f"({SEGMENT_CHAINS} chains): trace.json {os.path.getsize(path)} bytes names K1's "
+            f"kernel: {'fused_force_cl_kernel' in ' '.join(str(n) for n in names)}; "
+            f"key_averages: {k1_calls} K1 calls, device ms a call "
+            f"{k1_device_ms / max(1, k1_calls):.4f}; launches={got} ok={ok}")
+        if not ok:
+            fail("phase11 (d): the trace misses K1's kernel or the launch count is wrong")
+
+        # ------------------------------------------------------------ (e)
+        folded = fcl.augment_params_cl(gd10.model, params10, dev)
+        plain = gd10.score_fn(params10, dev)
+
+        def k1(x, t):
+            return fcl.fused_force_cl(x, t[0], folded)
+
+        gaps = {}
+        with timer.phase("(e) symmetry checkers, K1 and plain"):
+            for label, fn in (("k1", k1), ("plain", plain)):
+                gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+                with torch.no_grad():
+                    gaps[label] = dict(
+                        translation=check_translation_invariance(fn, 10, gen()),
+                        rotation=check_rotation_equivariance(fn, 10, gen()),
+                        reflection=check_reflection_equivariance(fn, 10, gen()))
+            x = torch.randn((256, 10, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+            scale = k1(x, torch.full((256,), 0.5, device=dev)).abs().mean().item()
+        tol = TOL_EQUIVARIANCE * scale
+        diffs = [abs(gaps["k1"]["rotation"] - gaps["plain"]["rotation"]),
+                 *(abs(a - b) for a, b in zip(gaps["k1"]["reflection"],
+                                              gaps["plain"]["reflection"]))]
+        ok = gaps["k1"]["translation"] <= tol and max(diffs) <= tol
+        out["equivariance"] = dict(gaps, mean_abs_eps=scale)
+        log(f"phase11 (e) symmetry checkers on chain10's score at t=0.5, 256 chains, the same "
+            f"generator seed: K1 {gaps['k1']} plain {gaps['plain']} mean|eps|={scale:.4f}; "
+            f"held: K1 translation gap <= {tol:.2e} and K1's rotation and reflection gaps within "
+            f"{tol:.2e} of the plain network's (largest difference {max(diffs):.2e}; "
+            f"intrinsic-coordinate edges are not rotation-invariant, so the rotation gap itself "
+            f"is not held) ok={ok}")
+        if not ok:
+            fail("phase11 (e): K1 breaks translation invariance or its symmetry gaps differ "
+                 "from the plain network's")
+
+        # ------------------------------------------------------------ (f)
+        ev = RmsdEvaluator("chignolin")
+        with timer.phase("(f) kabsch_rmsd, card and host"):
+            ref = torch.from_numpy(ev.folded.xyz)
+            host = kabsch_rmsd(torch.from_numpy(frames10), ref)
+            card = kabsch_rmsd(torch.from_numpy(frames10).to(dev), ref.to(dev)).cpu()
+            err = (card - host).abs().max().item()
+            curve = ev.eval("langevin", frames10)
+        ok = err <= TOL_KABSCH and bool(torch.isfinite(card).all())
+        out["kabsch"] = dict(frames=len(frames10), max_abs_diff=err)
+        log(f"phase11 (f) kabsch_rmsd of (a)'s {len(frames10)} chignolin frames to the folded "
+            f"chignolin structure, card (cuSOLVER) against host: max_abs_diff={err:.2e} A "
+            f"(tol {TOL_KABSCH}) RMSD median={host.median().item():.3f} A; "
+            f"RmsdEvaluator('chignolin').eval: {int(np.isfinite(curve['energies']).sum())} of "
+            f"{len(curve['energies'])} bins populated up to {curve['bin_mids'][-1]:.2f} A "
+            f"(no plot) ok={ok}")
+        if not ok:
+            fail("phase11 (f): kabsch_rmsd on the card disagrees with the host")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report = timer.report()
+    log("phase11 PhaseTimer:\n" + report)
+    out["phases_s"] = dict(timer.totals)
+    return out
 
 
 def main():
@@ -1457,6 +1777,10 @@ def main():
     training, k1_trained_err = training_phase(reset_counts, add_counts, dev)
     k1_err = max(k1_err, k1_trained_err)
     mark("phase10")
+
+    # ---------------------------------------------------------- phase 11
+    control = positive_control_phase(reset_counts, add_counts, counts, dev)
+    mark("phase11")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -1466,6 +1790,7 @@ def main():
     log("samples_per_s " + json.dumps(samples_per_s))
     log("cli " + json.dumps(cli_rates))
     log("training " + json.dumps(training))
+    log("positive_control " + json.dumps(control))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

@@ -115,7 +115,10 @@ def test_port_imports_no_jax_flax_or_jax_package():
                    "utils/artifacts.py", "models/__init__.py", "cli/train.py",
                    "train/trainer.py", "train/ema.py", "utils/preempt.py",
                    "utils/checkpoint.py", "evaluate/metrics.py", "evaluate/tica.py",
-                   "evaluate/plots.py", "ops/geometry.py"):
+                   "evaluate/plots.py", "ops/geometry.py", "evaluate/kinetics.py",
+                   "evaluate/ergodicity.py", "evaluate/__init__.py", "data/trajectory.py",
+                   "dynamics/segmented.py", "utils/profiling.py", "utils/equivariance.py",
+                   "train/positive_control.py"):
         assert module in scanned, module
     banned = ("jax", "flax", "twoforone_tpu", "optax")
     for path in files:

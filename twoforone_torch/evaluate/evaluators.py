@@ -1,7 +1,8 @@
 """Evaluation (port of ``twoforone_tpu/evaluate/evaluators.py``): the
 orchestrating :class:`Evaluator` with the three evaluators it builds
 (dihedral JS for alanine dipeptide, TIC JS and PWD JS for the fast folders),
-and the batched sampling driver.
+the RMSD-to-native and contact-map evaluators, and batched sampling
+(``sample_from_model``).
 
 The metrics are numpy, over the port's torch geometry in float32, as the JAX
 package computes them; golden references load from the staged assets by
@@ -10,8 +11,6 @@ returns ``None`` for the figure when it does not plot, the PWD plot computes
 its ground-truth distances where it needs them, ``np.histogram2d`` takes
 ``density=True``, an empty ``evalsetname`` means ``"testset"``, and a fast
 folder without data or a golden TICA pickle is scored on PWD alone.
-
-RMSD and contact evaluators are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +35,13 @@ from twoforone_torch.evaluate.metrics import (
     kl_div_density,
 )
 from twoforone_torch.evaluate.tica import fit_tica
-from twoforone_torch.ops.geometry import dihedrals, pwd_triu_batch, sliding_dihedral_indices
+from twoforone_torch.ops.geometry import (
+    dihedrals,
+    kabsch_rmsd,
+    pairwise_distances,
+    pwd_triu_batch,
+    sliding_dihedral_indices,
+)
 
 
 def _as_coords(data) -> Optional[np.ndarray]:
@@ -370,6 +375,125 @@ class TicEvaluator:
                 path=path, cmap=cmap, gradient=gradient, steps=steps, linewidth=linewidth,
             )
         return tic_js, fig
+
+
+class RmsdEvaluator:
+    """RMSD-to-native free-energy evaluator: a histogram of each frame's
+    Kabsch RMSD to the folded structure, as -log density."""
+
+    cutoff_dict_ref = {
+        "chignolin": 10,
+        "trp_cage": 12,
+        "bba": 14,
+        "villin": 14,
+        "protein_g": 20,
+    }
+
+    def __init__(self, mol_name: str, folded_pdb: Optional[str] = None,
+                 eval_folder: Optional[str] = None):
+        self.plots_folder = eval_folder
+        if folded_pdb is None:
+            protid = Molecules[mol_name.upper()].value
+            folded_pdb = os.path.join(FOLDED_PDB_DIR, f"{protid}.pdb")
+        self.folded = process_pdb(folded_pdb, mol_name)
+        self.plot_dict = {}
+        self.mol_name = mol_name
+        self.saved_ref = os.path.join(
+            SAVED_REFERENCES_DIR, f"saved_rmsd_{self.mol_name.upper()}_reference_total.pickle"
+        )
+        self.cutoff_ref = self.cutoff_dict_ref[mol_name.lower()]
+        self.nbins_ref = 100
+
+    def eval(self, method: str, xyz=None, nbins: int = 100,
+             cutoff: Optional[float] = None, save_dynamics: bool = False):
+        """``method="Reference"`` without frames loads the staged reference
+        curve (it exists for 100 bins and the molecule's cutoff only);
+        otherwise frames that are not finite get RMSD nan and stay out of
+        the histogram."""
+        if method == "Reference" and xyz is None and os.path.exists(self.saved_ref):
+            assert nbins == self.nbins_ref and cutoff == self.cutoff_ref, (
+                f"Reference data only exists for nbins={self.nbins_ref} and "
+                f"cutoff={self.cutoff_ref}"
+            )
+            with open(self.saved_ref, "rb") as f:
+                self.plot_dict[method] = pickle.load(f)
+            return self.plot_dict[method]
+
+        xyz = np.asarray(xyz)
+        self.plot_dict[method] = {}
+        valid_mask = np.all(np.all(np.isfinite(xyz), -1), -1)
+        rmsd = np.full(len(xyz), np.nan)
+        rmsd[valid_mask] = kabsch_rmsd(_f32(xyz[valid_mask]), _f32(self.folded.xyz)).numpy()
+        if save_dynamics:
+            self.plot_dict[method]["rmsd"] = rmsd
+        if cutoff is None:
+            cutoff = rmsd[~np.isnan(rmsd)].max()
+        h, bin_edges = np.histogram(rmsd, bins=nbins, range=[0, cutoff], density=True)
+        self.plot_dict[method]["bin_mids"] = (bin_edges[:-1] + bin_edges[1:]) / 2.0
+        with np.errstate(divide="ignore"):
+            self.plot_dict[method]["energies"] = -np.log(h)
+        return self.plot_dict[method]
+
+    def plot(self, save=True, **kwargs):
+        from twoforone_torch.evaluate.plots import plot_rmsd_free_energy
+
+        return plot_rmsd_free_energy(
+            self.plot_dict, self.mol_name, self.plots_folder, save=save, **kwargs
+        )
+
+
+class ContactEvaluator:
+    """Contact-map evaluator: contacts = pairwise distance < cutoff (default
+    10 Angstrom). Distances are computed in the frames' floating type
+    (float32 frames: float32, as the JAX package computes them)."""
+
+    def __init__(self, mol_name: str, folded_pdb: Optional[str] = None,
+                 eval_folder: Optional[str] = None, contact_cutoff: float = 10):
+        self.mol_name = mol_name
+        self.contact_cutoff = contact_cutoff
+        self.plots_folder = eval_folder
+        if folded_pdb is None:
+            protid = Molecules[mol_name.upper()].value
+            folded_pdb = os.path.join(FOLDED_PDB_DIR, f"{protid}.pdb")
+        self.folded = process_pdb(folded_pdb, mol_name).xyz
+        self.pwd_folded = pairwise_distances(torch.as_tensor(self.folded)).numpy()
+        self.contacts_folded = self.pwd_folded < self.contact_cutoff
+
+    def get_contacts(self, xyz_sampled) -> np.ndarray:
+        pwd = pairwise_distances(torch.as_tensor(np.asarray(xyz_sampled))).numpy()
+        return pwd < self.contact_cutoff
+
+    def normalized_contact_count(self, xyz_sampled) -> np.ndarray:
+        contacts = self.get_contacts(xyz_sampled)
+        return contacts.sum(axis=0) / len(contacts)
+
+    def bce_dynamics(self, xyz_sampled) -> np.ndarray:
+        """Per-frame binary cross entropy to the folded contact map over the
+        pairs at least 3 apart, with ``torch.nn.functional.binary_cross_entropy``'s
+        clamp of the logs at -100."""
+        contacts = self.get_contacts(xyz_sampled).astype(np.float64)
+        n = self.contacts_folded.shape[-1]
+        iu, ju = np.triu_indices(n, k=3)
+        samp = contacts[:, iu, ju]
+        target = self.contacts_folded[iu, ju].astype(np.float64)
+        with np.errstate(divide="ignore"):
+            log_p = np.maximum(np.log(samp), -100.0)
+            log_1mp = np.maximum(np.log(1.0 - samp), -100.0)
+        bce = -(target * log_p + (1.0 - target) * log_1mp)
+        return bce.mean(axis=-1)
+
+    def eval_bce(self, xyz_sampled) -> float:
+        return float(self.bce_dynamics(xyz_sampled).mean())
+
+    def plot_contact_normcount(self, xyz_sampled, method, save=True,
+                               take_log=False, vmin_log=None):
+        from twoforone_torch.evaluate.plots import plot_contact_normcount
+
+        norm_sum = self.normalized_contact_count(xyz_sampled)
+        return plot_contact_normcount(
+            norm_sum, self.mol_name, method, self.plots_folder,
+            save=save, take_log=take_log, vmin_log=vmin_log,
+        )
 
 
 def num_to_groups(num: int, divisor: int):

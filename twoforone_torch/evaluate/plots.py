@@ -1,5 +1,5 @@
 """Plots of the evaluators: Ramachandran free energy, TICA maps, PWD
-histograms (port of the first three plots of
+histograms, RMSD free-energy curves and contact-count maps (port of
 ``twoforone_tpu/evaluate/plots.py``).
 
 matplotlib is imported inside each function, so it stays off the training
@@ -10,6 +10,7 @@ package's does.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -148,3 +149,52 @@ def plot_pwd_histograms(gt_pwd_triu, pwd_sampled, file_name, save_plot=True):
     if save_plot:
         plt.savefig(file_name)
     plt.close(fig)
+
+
+def plot_rmsd_free_energy(plot_dict, mol_name, plots_folder, save=True,
+                          colors=None, linestyles=None, legend_bool=True,
+                          font_size=10, linewidth=None):
+    """RMSD-to-folded free-energy curves, one per method of ``plot_dict``."""
+    plt = _plt()
+    for i, (method, md_) in enumerate(plot_dict.items()):
+        plt.plot(
+            md_["bin_mids"], md_["energies"], label=method,
+            c=None if colors is None else colors[i],
+            linestyle=None if linestyles is None else linestyles[i],
+            linewidth=linewidth,
+        )
+    plt.tick_params(axis="both", labelsize=font_size)
+    plt.xlabel(r"$C_{\alpha}$ RMSD to folded (Å)")
+    plt.ylabel(r"Free energy / $k_BT$")
+    if legend_bool:
+        plt.legend(prop={"size": font_size})
+    if save:
+        plt.savefig(os.path.join(plots_folder, f"RMSD_{mol_name}_free_energy.png"))
+    plt.close()
+
+
+def plot_contact_normcount(norm_sum, mol_name, method, plots_folder,
+                           save=True, take_log=False, vmin_log=None):
+    """Normalized contact-count map; returns the least finite value plotted
+    (of the log map or the linear one)."""
+    plt = _plt()
+    plt.figure(figsize=(6, 6))
+    if take_log:
+        with np.errstate(divide="ignore"):
+            plotted = np.log(norm_sum)
+        plt.imshow(plotted, cmap="viridis_r", vmin=vmin_log)
+        label = "Log of normalized contact count"
+    else:
+        plotted = norm_sum
+        plt.imshow(plotted, cmap="viridis_r", vmin=0, vmax=1)
+        label = "Normalized contact count"
+    plt.xticks(np.arange(0, len(norm_sum), 5))
+    plt.yticks(np.arange(0, len(norm_sum), 5))
+    cb = plt.colorbar(format=lambda x, _: f"{x:.1f}", shrink=0.788)
+    cb.set_label(label, fontsize=12)
+    plt.title(f"{method}", fontsize=12, y=1.02)
+    plt.tight_layout()
+    if save:
+        plt.savefig(os.path.join(plots_folder, f"contact_normcount_{mol_name}_{method}.png"))
+    plt.close()
+    return float(np.min(plotted[np.isfinite(plotted)]))

@@ -1,8 +1,8 @@
 """Molecular geometry ops (port of ``twoforone_tpu/ops/geometry.py``).
 
 The SO(3) augmentation of training, and the geometry the evaluators read:
-pairwise distances and dihedrals with mdtraj's conventions, so that scores
-stay comparable with the golden references. Every function takes and
+pairwise distances, dihedrals and Kabsch superposition / RMSD with mdtraj's
+conventions, so that scores stay comparable with the golden references. Every function takes and
 returns torch tensors; the evaluators hand them float32 coordinates, as the
 JAX package computes them in float32.
 """
@@ -110,3 +110,57 @@ def sliding_dihedral_indices(num_beads: int) -> np.ndarray:
     """All consecutive 4-mers along the chain: the TICA feature dihedrals."""
     ind = np.arange(0, num_beads - 3)
     return np.stack((ind, ind + 1, ind + 2, ind + 3)).T
+
+
+def unsorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                         normalization_factor, aggregation_method: str) -> torch.Tensor:
+    """Segment sum over the leading axis of ``data``, divided by
+    ``normalization_factor`` (``"sum"``) or by each segment's count, at least
+    1 (``"mean"``). Kept for API parity: the dense-attention main path does
+    not use it. Every id must lie in [0, num_segments)."""
+    seg = data.new_zeros((num_segments, *data.shape[1:]))
+    seg.index_add_(0, segment_ids, data)
+    if aggregation_method == "sum":
+        return seg / normalization_factor
+    if aggregation_method == "mean":
+        counts = data.new_zeros((num_segments, *data.shape[1:]))
+        counts.index_add_(0, segment_ids, torch.ones_like(data))
+        return seg / torch.clamp(counts, min=1.0)
+    raise ValueError(f"unknown aggregation {aggregation_method}")
+
+
+def _kabsch_rotation(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Optimal proper rotations (B, 3, 3) taking each centred frame of ``x``
+    (B, N, 3) onto the centred reference ``r`` (N, 3), applied as ``x @ R``:
+    R = u diag(1, 1, sign det(u vt)) vt from the SVD of the covariance. On a
+    CUDA tensor the batched SVD runs on the card (cuSOLVER)."""
+    cov = torch.einsum("bni,nj->bij", x, r)
+    u, _, vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(u @ vt)
+    ones = torch.ones_like(det)
+    d = torch.stack([ones, ones, torch.sign(det)], dim=-1)
+    return torch.einsum("bij,bj,bjk->bik", u, d, vt)
+
+
+def superpose(xyz: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Optimally superpose each frame onto ``ref`` (Kabsch), like
+    ``mdtraj.Trajectory.superpose``: (B, N, 3) -> (B, N, 3) aligned frames,
+    centred at the reference's centroid."""
+    x = center_zero(xyz)
+    ref_mean = ref.mean(dim=0, keepdim=True)
+    rot = _kabsch_rotation(x, ref - ref_mean)
+    return torch.einsum("bni,bij->bnj", x, rot) + ref_mean[None]
+
+
+def kabsch_rmsd(xyz: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Minimum RMSD of each frame (B, N, 3) to ``ref`` (N, 3) after optimal
+    superposition -> (B,), the result ``mdtraj.rmsd`` gives.
+
+    The rotation is applied and the distance measured, rather than taken from
+    |x|^2 + |r|^2 - 2 tr(S), whose cancellation in float32 can leave a tiny
+    negative under the square root for a frame equal to the reference.
+    """
+    x = center_zero(xyz)
+    r = ref - ref.mean(dim=0, keepdim=True)
+    x_aligned = torch.einsum("bni,bij->bnj", x, _kabsch_rotation(x, r))
+    return torch.sqrt(torch.mean(torch.sum((x_aligned - r[None]) ** 2, dim=-1), dim=-1))
