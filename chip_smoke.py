@@ -33,7 +33,11 @@ models, with bench.py's settings:
 - the positive control: the Langevin stage of the chain controls on the
   staged chain10 and chain20 weights (the fused force kernel and the
   attention-core path), in resumable segments, scored by TIC JS and the
-  basin-exchange report; and ``run_chain_control`` at chain10's widths.
+  basin-exchange report; and ``run_chain_control`` at chain10's widths;
+- the multi-GPU layer (``twoforone_torch.parallel``): chignolin Langevin
+  and two training steps in a world of one over NCCL, then two ranks that
+  share the one card over gloo (chignolin and trp-cage Langevin, sharded
+  DDIM-100, training steps, and the sampling CLI under two ranks).
 
 Phases (any failure exits non-zero):
 
@@ -89,7 +93,25 @@ Phases (any failure exits non-zero):
    (no launch, the same arrays); (d) ``trace`` around chignolin steps names
    K1's kernel; (e) the symmetry checkers through K1 against the plain
    network; (f) ``kabsch_rmsd`` on the card against the host. The stages are
-   timed by ``PhaseTimer``.
+   timed by ``PhaseTimer``;
+12. the multi-GPU layer: (a) a world of 1 over NCCL on the card: chignolin
+   Langevin at 1000 chains through K1 with phase 3's seed and steps, and two
+   Trainer steps at chain10's published configuration (batch 512), each
+   bit for bit equal to the run without a mesh (steps/s beside phase 3's);
+   (b) two ranks (this script with ``--mesh-rank``) sharing the card over
+   gloo, since NCCL refuses two ranks on one device: the gathered
+   1000-chain chignolin trajectory (500 chains a rank through K1) bit for
+   bit equal to (a)'s, K1 launches equal to the steps on each rank;
+   trp-cage at 1000 chains resolving clx on each rank, held against the
+   single-process clx run after 10 steps; DDIM-100 at batch 4096 through K1
+   (launches, finiteness, centre of mass, spread); two training steps (the
+   weights bit for bit equal across the ranks, each step's gradient against
+   (a)'s); then ``python -m twoforone_torch.cli.sample`` under two ranks
+   with ``--parallel_sim 999`` (padded to 1000, 999 chains' frames out, the
+   files written by rank 0 alone). Every rank has a time limit; a rank that
+   fails or hangs fails the phase. The two-rank rates are two processes on
+   one card, not a scaling figure. The ranks' launches are added to the
+   ``kernels`` line; those of the CLI's processes are not counted.
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -161,7 +183,26 @@ DDIM_BATCH = 4096
 ANCESTRAL_BATCH = 1024
 TRP_DDIM_BATCH = 1024
 AGREE_BATCH = 256  # the 10-step and DDIM-20 comparisons of kernel and plain path
-K1_CHAINS = sorted({AGREE_BATCH, *CHAINS, ANCESTRAL_BATCH, DDIM_BATCH})
+# Phase 12: two ranks share the card, so each gives a kernel half of a run's
+# chains (MESH_RANKS is not the card count: the machine has one GPU).
+MESH_RANKS = 2
+MESH_CLI_CHAINS = 999  # --parallel_sim of the 2-rank CLI run, padded to 1000
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_FRAMES = 4000
+MESH_TRP_STEPS = 10
+MESH_RANK_TIMEOUT_S = 300  # a 2-rank world, start-up and kernel loads included
+# The 2-rank gradient (a sum over gloo, then / 2) against one rank's, per
+# step and leaf, relative to the larger of the leaf's largest entry and 1e-2
+# of the largest entry of any leaf: the rule and the 1e-4 of the training
+# tests (tests/test_torch_train.py), float32 sums taken in another order.
+# The weights are not held to it: Adam's first steps move an entry by about
+# lr * g / |g|, so an entry whose gradient is zero in exact arithmetic (the
+# key bias: softmax ignores a shift shared by all keys) moves by +-lr on its
+# rounding noise, whatever the summation order; they are held bit for bit
+# across the ranks.
+TOL_MESH_TRAIN_REL = 1e-4
+K1_CHAINS = sorted({AGREE_BATCH, *CHAINS, ANCESTRAL_BATCH, DDIM_BATCH,
+                    TRP_CHAINS // MESH_RANKS, DDIM_BATCH // MESH_RANKS})
 K1_TIMED_CHAINS = (*CHAINS, DDIM_BATCH)
 # Chain counts that leave a ragged last tile or change the tile size, beside
 # those of the paths; TILE_AROUND is the chain count whose tile size T gives
@@ -172,7 +213,8 @@ ALONE_CHAINS = (1, 3, 100, 1000)  # x[:k] alone against the same chains in the l
 TOL_ALONE_REL = 1e-6  # where the tile size differs; the same tile size must give the same bits
 # (N, B) of the attention-core checks: trp-cage at every chain count of its
 # paths, BBA, and a ragged case.
-CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATCH})),
+CORE_SHAPES = (*((20, b) for b in sorted({AGREE_BATCH, TRP_CHAINS, TRP_DDIM_BATCH,
+                                          TRP_CHAINS // MESH_RANKS})),
                (28, 256), (11, 3))
 # Chain counts at which K2 and K3 are timed at trp-cage width: where the path
 # gate starts sending chains to the attention core, and the Langevin runs'.
@@ -344,9 +386,10 @@ def normal(seed, shape, dev):
         np.random.default_rng(seed).normal(size=shape).astype(np.float32)).to(dev)
 
 
-def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev):
+def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev, mesh=None):
     """bench.py's Langevin settings (dt 2e-3 ps, masses 12, friction 1,
-    restraint_k 50, max_force 1e3) from a seeded random start."""
+    restraint_k 50, max_force 1e3) from a seeded random start; ``mesh``
+    shards the chains over its ranks."""
     from twoforone_torch.dynamics.langevin import LangevinDiffusion
 
     rng = np.random.default_rng(0)
@@ -357,7 +400,7 @@ def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev):
         t=spec["t_noise"], temp_data=spec["temp"], temp_sim=spec["temp"], dt=2e-3,
         masses=[12.0] * spec["n"], friction=1.0, kb="consistent", random_seed=0,
         steps_per_chunk=1000, log=False, fused=fused, restraint_k=50.0, max_force=1e3,
-        device=dev,
+        device=dev, mesh=mesh,
     )
 
 
@@ -1072,6 +1115,409 @@ def positive_control_phase(reset_counts, add_counts, counts, dev):
     return out
 
 
+# ------------------------------------------------------------------ phase 12
+def kernel_counts():
+    """Launches of (K1, K2, K3, K4) since the counters were last set to 0."""
+    from twoforone_torch.ops import attention_cl_core as acc
+    from twoforone_torch.ops import fused_score as fsc
+    from twoforone_torch.ops import fused_score_cl as fcl
+
+    return (fcl.fused_force_cl.launches, acc.cl_attention_core.launches_fwd,
+            acc.cl_attention_core.launches_bwd, fsc.fused_force.launches)
+
+
+def zero_counts():
+    from twoforone_torch.ops import attention_cl_core as acc
+    from twoforone_torch.ops import fused_score as fsc
+    from twoforone_torch.ops import fused_score_cl as fcl
+
+    fcl.fused_force_cl.launches = fsc.fused_force.launches = 0
+    acc.cl_attention_core.launches_fwd = acc.cl_attention_core.launches_bwd = 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def langevin_kept(ld, warmup, steps):
+    """Phase 3's timed run that keeps the trajectory: ``warmup`` steps, then
+    ``steps`` timed; returns (steps/s of the timed part, the whole saved
+    trajectory)."""
+    first = ld.sim.simulate(sub_interval=warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest = ld.sim.simulate(sub_interval=steps)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0), np.concatenate([first, rest], axis=1)
+
+
+def mesh_trainer(dev, folder, mesh=None):
+    """A Trainer at chain10's published configuration (batch 512) on
+    synthetic chignolin frames, with the global batches of
+    MESH_TRAIN_STEPS steps as MESH_RANKS ranks draw them (rank r from its
+    iterator seeded seed + 7919 r, rank-major). Its results folder is
+    under ``folder``; nothing is written there."""
+    from twoforone_torch.core.diffusion import GaussianDiffusion
+    from twoforone_torch.data.datasets import CGDataset
+    from twoforone_torch.data.molecules import FOLDED_PDB_DIR, Molecules
+    from twoforone_torch.data.pdb import load_pdb
+    from twoforone_torch.data.synthetic import chain10_dataset
+    from twoforone_torch.models import get_model
+    from twoforone_torch.train.trainer import Trainer, batch_iterator
+    from twoforone_torch.utils.artifacts import trained_dir
+    from twoforone_torch.utils.config import TrainConfig
+
+    with open(os.path.join(trained_dir("chain10"), "config.json")) as f:
+        published = json.load(f)
+    cfg = TrainConfig.from_dict(dict(published, results_folder=folder,
+                                     tensorboard_folder=folder))
+    frames = chain10_dataset(MESH_TRAIN_FRAMES, seed=0)
+    topology = load_pdb(os.path.join(FOLDED_PDB_DIR, "CLN025-0-c-alpha.pdb")).topology
+    sets = tuple(CGDataset(d, topology, Molecules.CHIGNOLIN)
+                 for d in (frames[:3000], frames[3000:3500], frames[3500:]))
+    gd = GaussianDiffusion(model=get_model(cfg, 10), num_atoms=10,
+                           timesteps=cfg.diffusion_steps, norm_factor=float(frames.std()),
+                           loss_weights=cfg.loss_weights)
+    trainer = Trainer(gd, sets, cfg.mol, cfg, mesh=mesh, use_tensorboard=False,
+                      evaluators=False, device=dev)
+    its = [batch_iterator(np.asarray(sets[0].data), cfg.batch_size // MESH_RANKS,
+                          seed=cfg.seed + 7919 * r) for r in range(MESH_RANKS)]
+    batches = [np.concatenate([next(it) for it in its]) for _ in range(MESH_TRAIN_STEPS)]
+    return trainer, batches
+
+
+def mesh_train_steps(trainer, batches):
+    """MESH_TRAIN_STEPS steps from the training loop's generator seed, each
+    rank on its rows of the global batch. Returns the weights and the EMA
+    after, and each step's gradient (the mean over the global batch)."""
+    from twoforone_torch.parallel.mesh import local_rows
+
+    gen = torch.Generator(trainer.device).manual_seed(trainer.config.seed + 1)
+    rows = local_rows(len(batches[0]), trainer.mesh)
+    grads = []
+    for batch in batches:
+        trainer._train_step(batch[rows], gen)
+        grads.append({n: p.grad.cpu() for n, p in trainer.net.named_parameters()})
+    return ({k: v.cpu() for k, v in trainer.net.state_dict().items()},
+            {k: v.cpu() for k, v in trainer.ema.state_dict().items()}, grads)
+
+
+def rank_command(*args):
+    """The command line of a rank of phase 12 (b): this script, as a rank."""
+    return [sys.executable, os.path.abspath(__file__), "--mesh-rank", *map(str, args)]
+
+
+def mesh_rank_main(rank, port, folder, device):
+    """One of the MESH_RANKS ranks of phase 12 (b), all on ``device`` (the
+    one card) over gloo (NCCL refuses two ranks on one device). Runs chignolin Langevin (K1),
+    trp-cage Langevin (clx), DDIM-100 (K1) and two training steps with the
+    mesh, each with the counters set to 0 just before, and saves what it
+    got into ``folder``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from twoforone_torch.parallel.mesh import get_mesh, initialize_distributed
+    from twoforone_torch.utils.artifacts import load_ema_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank, backend="gloo", device=dev,
+                           timeout=timedelta(seconds=MESH_RANK_TIMEOUT_S))
+    mesh = get_mesh(dev)
+    out = {"counts": {}}
+
+    gd, params = make_gd(CHIGNOLIN), load_ema_params(CHIGNOLIN["name"])
+    ld = make_sim(gd, params, CHIGNOLIN, CHAINS[-1], "auto", 10_000_000, WARMUP_STEPS, dev, mesh)
+    zero_counts()
+    rate, traj = langevin_kept(ld, WARMUP_STEPS, TIMED_STEPS)
+    out["counts"]["chignolin"] = kernel_counts()
+    out.update(chignolin_mode=ld.force_fn.mode, chignolin_steps_per_s=rate,
+               chignolin_traj=torch.from_numpy(traj), local_chains=ld.sim._state[0].shape[0])
+    del ld
+
+    gd_trp, params_trp = make_gd(TRP_CAGE), load_ema_params(TRP_CAGE["name"])
+    ld = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "auto", MESH_TRP_STEPS,
+                  MESH_TRP_STEPS, dev, mesh)
+    zero_counts()
+    out["trp_final"] = torch.from_numpy(ld.sample())
+    out["counts"]["trp_cage"] = kernel_counts()
+    out["trp_mode"] = ld.force_fn.mode
+    del ld
+
+    fn = gd.make_fused_sample_fn(params, DDIM_BATCH, kernel="auto", sample_steps=100,
+                                 device=dev, mesh=mesh)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = fn(torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    out.update(ddim_seconds=time.perf_counter() - t0, ddim_kernel=fn.kernel,
+               ddim_samples=samples.cpu())
+    out["counts"]["ddim"] = kernel_counts()
+
+    trainer, batches = mesh_trainer(dev, os.path.join(folder, f"train{rank}"), mesh)
+    zero_counts()
+    out["weights"], out["ema"], out["grads"] = mesh_train_steps(trainer, batches)
+    out["counts"]["train"] = kernel_counts()
+    torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def wait_ranks(procs, logs, what):
+    """Wait for every rank within MESH_RANK_TIMEOUT_S; a rank that hangs or
+    fails fails the phase (the others are stopped)."""
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        fail(f"phase12 {what}: a rank did not finish within {MESH_RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            texts.append(f.read())
+        print(f"--- phase12 {what} rank {r}\n{texts[-1][-6000:]}", file=sys.stderr)
+        if p.returncode != 0:
+            fail(f"phase12 {what}: rank {r} exited {p.returncode}:\n{texts[-1][-3000:]}")
+    return texts
+
+
+def mesh_phase(reset_counts, add_counts, dev, phase3_sps):
+    """Phase 12 in a temporary folder (see :func:`mesh_phase_in`)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        return mesh_phase_in(tmp, reset_counts, add_counts, dev, phase3_sps)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_phase_in(tmp, reset_counts, add_counts, dev, phase3_sps):
+    """Phase 12, the multi-GPU layer. (a) A world of 1 over NCCL: chignolin
+    Langevin at 1000 chains through K1 and two training steps at chain10's
+    published configuration, each bit for bit equal to the run without a
+    mesh. (b) MESH_RANKS ranks sharing the card over gloo: the gathered
+    1000-chain chignolin trajectory bit for bit equal to (a)'s, K1 launches
+    equal to the steps on each rank, trp-cage resolving clx on each rank and
+    held against the single-process clx run, sharded DDIM-100 at batch 4096
+    through K1, two training steps (weights equal across the ranks, and to
+    each step's gradient against (a)'s); then the sampling CLI
+    under MESH_RANKS ranks with --parallel_sim 999. Returns the numbers and
+    the ranks' launches (K1, K2, K3, K4), which the counters of this process
+    do not see."""
+    import shutil
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from twoforone_torch.parallel.mesh import get_mesh, initialize_distributed
+    from twoforone_torch.utils.artifacts import load_ema_params, trained_dir
+
+    out = {}
+    gd, params = make_gd(CHIGNOLIN), load_ema_params(CHIGNOLIN["name"])
+    steps = WARMUP_STEPS + TIMED_STEPS
+    chains = CHAINS[-1]
+
+    # ------------------------------------------------------------ (a)
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev,
+                           timeout=timedelta(seconds=MESH_RANK_TIMEOUT_S))
+    mesh = get_mesh(dev)
+    dev = mesh.device
+    reset_counts()
+    _, ref_traj = langevin_kept(make_sim(gd, params, CHIGNOLIN, chains, "auto", 10_000_000,
+                                         WARMUP_STEPS, dev), WARMUP_STEPS, TIMED_STEPS)
+    add_counts()
+    ld = make_sim(gd, params, CHIGNOLIN, chains, "auto", 10_000_000, WARMUP_STEPS, dev, mesh)
+    reset_counts()
+    rate_a, traj_a = langevin_kept(ld, WARMUP_STEPS, TIMED_STEPS)
+    got = add_counts()
+    same = bool(np.array_equal(traj_a, ref_traj))
+    backend = "nccl" if dev.type == "cuda" else "gloo"  # gloo: a rehearsal on the CPU
+    ok = (mesh.backend, mesh.size) == (backend, 1) and ld.force_fn.mode == "cl" and same \
+        and got == (steps, 0, 0, 0)
+    log(f"phase12 (a) world of 1 over {mesh.backend} on {mesh.device}: chignolin chains={chains} "
+        f"steps_per_s={rate_a:.2f} (phase 3 without a mesh: {phase3_sps:.2f}) "
+        f"launches_k1_fwd_bwd_k4={got} steps={steps} trajectory_bitwise_equal={same} ok={ok}")
+    if not ok:
+        fail("phase12 (a): the world of 1 differs from the run without a mesh")
+    del ld
+
+    trainer, batches = mesh_trainer(dev, os.path.join(tmp, "plain"))
+    ref_w, ref_ema, ref_grads = mesh_train_steps(trainer, batches)
+    trainer, _ = mesh_trainer(dev, os.path.join(tmp, "mesh"), mesh)
+    reset_counts()
+    w_a, ema_a, grads_a = mesh_train_steps(trainer, batches)
+    got = add_counts()
+    same = all(torch.equal(w_a[k], ref_w[k]) for k in ref_w) and all(
+        torch.equal(ema_a[k], ref_ema[k]) for k in ref_ema) and all(
+        torch.equal(g[k], r[k]) for g, r in zip(grads_a, ref_grads) for k in r)
+    log(f"phase12 (a) {MESH_TRAIN_STEPS} Trainer steps at chain10's published configuration "
+        f"(batch {trainer.batch_size}) with the mesh: weights_and_ema_bitwise_equal={same} "
+        f"launches={got}")
+    if not same or got != (0, 0, 0, 0):
+        fail("phase12 (a): training with the world of 1 differs from training without a mesh")
+    del trainer
+    dist.destroy_process_group()
+
+    gd_trp, params_trp = make_gd(TRP_CAGE), load_ema_params(TRP_CAGE["name"])
+    reset_counts()
+    trp_ref = make_sim(gd_trp, params_trp, TRP_CAGE, TRP_CHAINS, "auto", MESH_TRP_STEPS,
+                       MESH_TRP_STEPS, dev).sample()
+    add_counts()
+    out["a"] = dict(chignolin_chains=chains, steps_per_s=rate_a, phase3_steps_per_s=phase3_sps)
+
+    # ------------------------------------------------------------ (b)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    rank_counts = np.zeros(4, dtype=np.int64)
+    port = free_port()
+    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(MESH_RANKS):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(rank_command(r, port, tmp, dev), cwd=root, env=env,
+                                          stdout=f, stderr=subprocess.STDOUT))
+    wait_ranks(procs, logs, "(b) ranks")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(MESH_RANKS)]
+    for res in ranks:
+        for c in res["counts"].values():
+            rank_counts += np.asarray(c)
+    first = ranks[0]
+    per_rank = chains // MESH_RANKS
+
+    traj_b = first["chignolin_traj"].numpy()
+    traj_diff = float(np.abs(traj_b - traj_a).max())
+    same = bool(np.array_equal(traj_b, traj_a)) and all(
+        torch.equal(res["chignolin_traj"], first["chignolin_traj"]) for res in ranks)
+    counts = [res["counts"]["chignolin"] for res in ranks]
+    rates = [res["chignolin_steps_per_s"] for res in ranks]
+    ok = same and all(c == (steps, 0, 0, 0) for c in counts) and all(
+        res["chignolin_mode"] == "cl" and res["local_chains"] == per_rank for res in ranks)
+    log(f"phase12 (b) two ranks on one card (gloo, {dev}; not a scaling figure): chignolin "
+        f"chains={chains} ({per_rank} a rank) steps_per_s_by_rank={[round(x, 2) for x in rates]} "
+        f"launches_k1_fwd_bwd_k4_by_rank={counts} steps={steps} "
+        f"gathered_trajectory_bitwise_equal_to_a={same} max_diff={traj_diff:.3e} ok={ok}")
+    if not ok:
+        fail("phase12 (b): the 2-rank chignolin run differs from the world of 1")
+
+    trp_b = first["trp_final"].numpy()
+    diff = float(np.abs(trp_b - trp_ref).max())
+    scale = float(np.abs(trp_ref).max())
+    counts = [res["counts"]["trp_cage"] for res in ranks]
+    want = (0, 3 * MESH_TRP_STEPS, 3 * MESH_TRP_STEPS, 0)
+    ok = (all(res["trp_mode"] == "clx" for res in ranks) and all(c == want for c in counts)
+          and bool(np.isfinite(trp_b).all()) and diff <= TOL_TRAJ_REL * scale
+          and all(torch.equal(res["trp_final"], first["trp_final"]) for res in ranks))
+    log(f"phase12 (b) trp_cage chains={TRP_CHAINS} ({TRP_CHAINS // MESH_RANKS} a rank) "
+        f"modes={[res['trp_mode'] for res in ranks]} launches_by_rank={counts} after "
+        f"{MESH_TRP_STEPS} steps max_coord_diff_vs_single_process_clx={diff:.3e} "
+        f"max_coord={scale:.3f} tol_rel={TOL_TRAJ_REL} ok={ok}")
+    if not ok:
+        fail("phase12 (b): trp-cage on two ranks is not clx or disagrees with one process")
+
+    samples = first["ddim_samples"]
+    counts = [res["counts"]["ddim"] for res in ranks]
+    finite = bool(torch.isfinite(samples).all())
+    com = (samples.mean(dim=1).abs().max() / CHIGNOLIN["norm"]).item()
+    std_ratio = (samples.std() / CHIGNOLIN["norm"]).item()
+    ok = (finite and tuple(samples.shape) == (DDIM_BATCH, 10, 3) and com <= TOL_COM
+          and 0.5 <= std_ratio <= 2.0 and all(c == (100, 0, 0, 0) for c in counts)
+          and all(res["ddim_kernel"] == "cl" for res in ranks)
+          and all(torch.equal(res["ddim_samples"], samples) for res in ranks))
+    ddim_s = max(res["ddim_seconds"] for res in ranks)
+    log(f"phase12 (b) chignolin DDIM-100 batch={DDIM_BATCH} ({DDIM_BATCH // MESH_RANKS} a "
+        f"rank) kernel={first['ddim_kernel']} samples_per_s={DDIM_BATCH / ddim_s:.2f} "
+        f"launches_by_rank={counts} finite={finite} max_com_over_norm={com:.2e} "
+        f"std_over_norm={std_ratio:.3f} ok={ok}")
+    if not ok:
+        fail("phase12 (b): sharded DDIM-100 gave wrong launches, shape, centre or spread")
+
+    across = all(torch.equal(res[key][k], first[key][k]) for res in ranks
+                 for key in ("weights", "ema") for k in first[key])
+
+    def worst(got, ref, floor=0.0):
+        """The largest distance over the leaves, each over the larger of its
+        largest entry and ``floor``; and that leaf's name."""
+        return max((float((got[k] - ref[k]).abs().max()
+                          / max(float(ref[k].abs().max()), floor, 1e-30)), k) for k in ref)
+
+    grad_worst, grad_leaf = max(
+        worst(g, r, 1e-2 * max(float(v.abs().max()) for v in r.values()))
+        for g, r in zip(first["grads"], grads_a))
+    weight_worst, weight_leaf = worst(first["weights"], w_a)
+    counts = [res["counts"]["train"] for res in ranks]
+    ok = across and grad_worst <= TOL_MESH_TRAIN_REL and all(c == (0, 0, 0, 0) for c in counts)
+    log(f"phase12 (b) {MESH_TRAIN_STEPS} Trainer steps over {MESH_RANKS} ranks: "
+        f"weights_and_ema_bitwise_equal_across_ranks={across} "
+        f"worst_leaf_gradient_diff_vs_a={grad_worst:.3e} ({grad_leaf}) "
+        f"tol={TOL_MESH_TRAIN_REL} worst_leaf_weight_diff_vs_a_over_leaf_max={weight_worst:.3e} "
+        f"({weight_leaf}; not held: Adam) launches_by_rank={counts} ok={ok}")
+    if not ok:
+        fail("phase12 (b): 2-rank training steps differ across ranks or from one rank")
+    out["b"] = dict(wall_s=wall, chignolin_steps_per_s_by_rank=rates,
+                    ddim100_samples_per_s=DDIM_BATCH / ddim_s, trp_cage_max_diff=diff,
+                    train_grad_worst_leaf_rel=grad_worst,
+                    train_weight_worst_leaf_rel=weight_worst)
+
+    # The sampling CLI under MESH_RANKS ranks, configured as torchrun
+    # configures them, each on its own copy of chain10; --device names the
+    # one card, so the ranks share it over gloo (default_backend).
+    port = free_port()
+    logs, procs = [], []
+    t0 = time.perf_counter()
+    for r in range(MESH_RANKS):
+        path = os.path.join(tmp, f"chain10_r{r}")
+        shutil.copytree(trained_dir("chain10"), path)
+        logs.append(os.path.join(tmp, f"cli{r}.log"))
+        rank_env = dict(env, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                        WORLD_SIZE=str(MESH_RANKS), RANK=str(r), LOCAL_RANK=str(r),
+                        LOCAL_WORLD_SIZE=str(MESH_RANKS))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "twoforone_torch.cli.sample", "--model_path", path,
+                 "--gen_mode", "langevin", "--fused", "auto", "--parallel_sim",
+                 str(MESH_CLI_CHAINS), "--batch_size_gen", str(chains), "--n_timesteps",
+                 "200", "--save_interval", "100", "--sample_steps", "100", "--device",
+                 str(dev)], cwd=root, env=rank_env, stdout=f, stderr=subprocess.STDOUT))
+    texts = wait_ranks(procs, logs, "(b) sampling CLI")
+    cli_wall = time.perf_counter() - t0
+    padded = -(-MESH_CLI_CHAINS // MESH_RANKS) * MESH_RANKS
+    lines = (f"Sharding over {MESH_RANKS} devices (batch {chains}, parallel_sim {padded})",
+             "Langevin force path: cl", "i.i.d. sampler kernel: cl")
+    printed = all(line in t for t in texts for line in lines)
+    folders = [os.path.join(tmp, f"chain10_r{r}", "main_eval_output_langevin")
+               for r in range(MESH_RANKS)]
+    files = [sorted(os.listdir(f)) for f in folders]
+    arr = np.load(os.path.join(folders[0], "sample-langevin.npy"))
+    ok = (printed and files[0] == ["sample-langevin.npy", "sample-langevin.pdb",
+                                   "sample-langevin.pt"]
+          and all(f == [] for f in files[1:]) and arr.shape == (MESH_CLI_CHAINS * 2, 10, 3)
+          and bool(np.isfinite(arr).all()))
+    log(f"phase12 (b) cli.sample under {MESH_RANKS} ranks --parallel_sim {MESH_CLI_CHAINS}: "
+        f"padded_to={padded} lines_printed={printed} output_shape={arr.shape} "
+        f"files_by_rank={files} wall_s={cli_wall:.1f} ok={ok}")
+    if not ok:
+        fail("phase12 (b): the 2-rank sampling CLI padded, wrote or printed the wrong thing")
+    out["b"]["cli_wall_s"] = cli_wall
+    return out, tuple(int(c) for c in rank_counts)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1781,6 +2227,12 @@ def main():
     # ---------------------------------------------------------- phase 11
     control = positive_control_phase(reset_counts, add_counts, counts, dev)
     mark("phase11")
+
+    # ---------------------------------------------------------- phase 12
+    mesh_numbers, rank_launches = mesh_phase(reset_counts, add_counts, dev, sps[1000])
+    for name, count in zip(("k1", "fwd", "bwd", "k4"), rank_launches):
+        launches[name] += count
+    mark("phase12")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -1791,6 +2243,7 @@ def main():
     log("cli " + json.dumps(cli_rates))
     log("training " + json.dumps(training))
     log("positive_control " + json.dumps(control))
+    log("mesh " + json.dumps(mesh_numbers))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))
@@ -1849,4 +2302,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 12 (b), started by main()
+        sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]))
     sys.exit(main())

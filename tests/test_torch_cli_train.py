@@ -49,8 +49,14 @@ def test_parsers_have_the_same_flags():
 
 
 def test_multihost_and_a_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="one device"):
-        tcli.main(["--multihost", "true", "--device", "cpu"])
+    """``--multihost`` with a process count but no coordinator raises before
+    anything is read (the JAX CLI's ``jax.distributed.initialize`` needs
+    one off the TPU too)."""
+    for var in ("MASTER_ADDR", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="no coordinator"):
+        tcli.main(["--multihost", "true", "--num_processes", "2", "--process_id", "0",
+                   "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.main(["--mol", "chignolin", "--data_folder", "None"])

@@ -639,8 +639,15 @@ def test_port_written_best_scores_the_same_in_both_packages(tmp_path):
 
 
 def test_trainer_rejects_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="one device"):
+    """A mesh that is not a ``Mesh``, or one that places the rank on another
+    device than ``device``, is refused before anything is built."""
+    from twoforone_torch.parallel.mesh import Mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         Trainer(None, _chignolin_sets(), "chignolin", TrainConfig(), mesh=object(), device=CPU)
+    on_card = Mesh(1, 0, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="places this rank on cuda:0"):
+        Trainer(None, _chignolin_sets(), "chignolin", TrainConfig(), mesh=on_card, device=CPU)
 
 
 # ------------------------------------------------------------------- preempt

@@ -14,6 +14,12 @@ Writes ``sample-<mode>.npy``, ``.pt`` and ``.pdb`` (the first 1000 frames)
 into ``main_eval_output_<mode>[_<append_exp_name>]`` under ``--model_path``.
 Runs on the card (``--device cuda``, the default, raising without CUDA) or,
 with ``--device cpu``, the plain PyTorch paths on the host.
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node K -m
+twoforone_torch.cli.sample ...``) the run spans K GPUs, one process each
+(:mod:`twoforone_torch.parallel.mesh`): the batch and the chains are padded
+up to a multiple of K and split over the ranks, every rank gets all the
+samples, and only rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from twoforone_torch.data.pdb import save_pdb
 from twoforone_torch.dynamics.langevin import LangevinDiffusion
 from twoforone_torch.evaluate.evaluators import sample_from_model
 from twoforone_torch.models import get_model
+from twoforone_torch.parallel.mesh import get_mesh, initialize_distributed, round_to_mesh
 from twoforone_torch.utils.checkpoint import read_checkpoint
 from twoforone_torch.utils.config import load_config
 from twoforone_torch.utils.convert import load_torch_checkpoint_as_params, params_from_jax
@@ -166,6 +173,10 @@ def main(argv=None):
     if samp_args.bf16:
         raise ValueError("--bf16: the PyTorch port computes in float32 only")
     device = resolve_device(samp_args.device)
+    # A process group when torchrun's environment configures one.
+    mesh = get_mesh(device) if initialize_distributed(device=device) else None
+    if mesh is not None:
+        device = mesh.device
     gd, ema_params, trainset, cfg = load_model(
         samp_args.model_path, samp_args.model_checkpoint, samp_args.data_folder, device
     )
@@ -184,36 +195,38 @@ def main(argv=None):
     eval_folder = Path(samp_args.model_path) / ("main_eval_output" + append)
     eval_folder.mkdir(exist_ok=True, parents=False)
 
-    # One device: the JAX CLI pads the batch and the chains up to a multiple
-    # of its mesh (round_to_mesh), which is the identity here; the padding
-    # comes with the multi-GPU mesh.
-    batch = samp_args.batch_size_gen
+    # The batch and the chains are padded up to a multiple of the mesh size,
+    # so that every rank carries the same share; the padding chains are
+    # simulated and then dropped.
+    batch = round_to_mesh(samp_args.batch_size_gen, mesh)
+    sim_requested = samp_args.parallel_sim
+    sim_padded = round_to_mesh(sim_requested, mesh)
+    if mesh is not None:
+        print(f"Sharding over {mesh.size} devices (batch {batch}, parallel_sim {sim_padded})")
     generator = torch.Generator(device=device).manual_seed(samp_args.seed)
     kernel = "xla"
     if samp_args.fused != "never" and gd.model.conservative:
         kernel = SAMPLE_KERNEL[samp_args.fused]
     sample_fn = gd.make_fused_sample_fn(
         ema_params, batch, kernel=kernel, sample_steps=samp_args.sample_steps,
-        eta=samp_args.ddim_eta, solver=samp_args.solver, device=device,
+        eta=samp_args.ddim_eta, solver=samp_args.solver, device=device, mesh=mesh,
     )
 
-    def driver(batch_size, gen):
+    def sample_batch(batch_size, gen):
         return sample_fn(gen)
 
-    driver.kernel = sample_fn.kernel
-    print(f"i.i.d. sampler kernel: {driver.kernel}")
+    sample_batch.kernel = sample_fn.kernel
+    print(f"i.i.d. sampler kernel: {sample_batch.kernel}")
 
     if samp_args.gen_mode == "iid":
         sampled_mol = sample_from_model(
-            driver, samp_args.num_samples_eval, batch, generator, verbose=True
+            sample_batch, samp_args.num_samples_eval, batch, generator, verbose=True
         )
     elif samp_args.gen_mode == "langevin":
-        n_save = int(samp_args.parallel_sim * samp_args.n_timesteps / samp_args.save_interval)
+        n_save = int(sim_requested * samp_args.n_timesteps / samp_args.save_interval)
         print(f"Total number of samples to save using Langevin Dynamics: {n_save}")
         # Initial states: i.i.d. samples from the same model.
-        init_mol = sample_from_model(
-            driver, samp_args.parallel_sim, batch, generator, verbose=True
-        )
+        init_mol = sample_from_model(sample_batch, sim_padded, batch, generator, verbose=True)
         masses = samp_args.masses
         if masses is None:
             m = MASS_ALA2 if "alanine" in cfg.mol else MASS_FASTFOLDER
@@ -243,6 +256,7 @@ def main(argv=None):
             random_seed=samp_args.seed,
             fused=samp_args.fused,
             device=device,
+            mesh=mesh,
         )
         print(f"Langevin force path: {sampler.force_fn.mode}")
         reference_temp = None
@@ -254,9 +268,15 @@ def main(argv=None):
             )
             print(f"Tempering ramp enabled: reference_temp={reference_temp} K")
         sampled_mol = sampler.sample(reference_temp=reference_temp)
+        if sim_padded != sim_requested:
+            # Drop the padding chains (sample() is chains-major).
+            sampled_mol = sampled_mol.reshape(sim_padded, -1, *sampled_mol.shape[1:])
+            sampled_mol = sampled_mol[:sim_requested].reshape(-1, *sampled_mol.shape[2:])
     else:
         raise ValueError("Wrong argument 'gen_mode'")
 
+    if mesh is not None and mesh.rank != 0:
+        return sampled_mol
     np.save(str(eval_folder / f"sample-{samp_args.gen_mode}.npy"), sampled_mol)
     torch.save(
         torch.from_numpy(np.asarray(sampled_mol)),

@@ -6,10 +6,15 @@ plus ``--device``).
 Boolean flags take true/false strings. ``--mol alanine_dipeptide`` means
 ``alanine_dipeptide_fuberlin``, as in the JAX CLI. Runs on the card
 (``--device cuda``, the default, raising without CUDA) or, with ``--device
-cpu``, on the host. ``--multihost``, ``--coordinator_address``,
-``--num_processes`` and ``--process_id`` are parsed; ``--multihost true``
-raises, since the port trains on one device. The JAX CLI's compile cache has
-no counterpart.
+cpu``, on the host. The JAX CLI's compile cache has no counterpart.
+
+Data-parallel training runs one process per GPU
+(:mod:`twoforone_torch.parallel.mesh`). Under torchrun (``python -m
+torch.distributed.run --nproc_per_node K -m twoforone_torch.cli.train ...``)
+the environment configures the process group and the same command spans K
+GPUs. Across hosts, ``--multihost true --coordinator_address host0:port
+--num_processes W --process_id r`` configures it explicitly; with nothing
+configured ``--multihost true`` is a logged no-op.
 """
 
 from __future__ import annotations
@@ -100,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ala2_train_cap", type=int, default=500000)
     p.add_argument("--multihost", type=_bool, default=False,
-                   help="join a multi-process job: not in the port yet (one device); true raises")
+                   help="join a multi-process job through --coordinator_address, "
+                        "--num_processes and --process_id (torchrun's environment "
+                        "needs no flag); a no-op when nothing is configured")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of process 0 of a multi-process job")
     p.add_argument("--num_processes", type=_optional(int), default=None)
@@ -125,11 +132,20 @@ def config_from_args(args) -> TrainConfig:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost: the PyTorch port trains on one device")
+    from twoforone_torch.parallel.mesh import get_mesh, initialize_distributed
     from twoforone_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.multihost:
+        started = initialize_distributed(args.coordinator_address, args.num_processes,
+                                         args.process_id, device=device)
+    else:  # torchrun's environment, else a no-op
+        started = initialize_distributed(device=device)
+    mesh = get_mesh(device) if started else None
+    if mesh is not None:
+        print(f"multihost: process {mesh.rank}/{mesh.size}, {mesh.size} global devices")
+    elif args.multihost:
+        print("multihost: no coordinator configured; single-process run")
     cfg = config_from_args(args)
     print(cfg)
 
@@ -160,7 +176,8 @@ def main(argv=None):
             None if cfg.t_diff_interval is None else tuple(cfg.t_diff_interval)
         ),
     )
-    trainer = Trainer(gd, (trainset, valset, testset), cfg.mol, cfg, device=device)
+    trainer = Trainer(gd, (trainset, valset, testset), cfg.mol, cfg, mesh=mesh,
+                      device=device)
     trainer.train()
     return trainer
 

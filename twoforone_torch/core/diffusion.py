@@ -19,10 +19,15 @@ What differs from the JAX module:
 - the one-step functions take the step's noise tensor where the JAX ones
   take a key;
 - all coefficient arithmetic stays in float32 tensors read from the buffers,
-  so a chain follows the JAX chain step for step.
+  so a chain follows the JAX chain step for step;
+- with a ``mesh`` (:mod:`twoforone_torch.parallel.mesh`) the reverse loops
+  take the global shape, draw every step's noise for the whole batch and
+  keep the rank's rows, so a sharded chain equals the unsharded one (the
+  JAX package gets this from partitionable ``jax.random``); they return the
+  rank's rows, and the sampling closures gather them.
 
-Not ported: the device mesh, bfloat16 score evaluation and
-``make_sample_fn`` (``jit`` has no counterpart). ``init_params`` is
+Not ported: bfloat16 score evaluation and ``make_sample_fn`` (``jit`` has no
+counterpart). ``init_params`` is
 :func:`twoforone_torch.models.graph_transformer.init_params`.
 """
 
@@ -38,6 +43,7 @@ import torch
 
 from twoforone_torch.core.schedules import DiffusionBuffers, extract, make_buffers
 from twoforone_torch.ops.geometry import center_zero
+from twoforone_torch.parallel.mesh import entry_device, gather, local_rows, mesh_size
 from twoforone_torch.utils.device import resolve_device
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x, t_norm) -> eps_hat
@@ -137,29 +143,38 @@ def p_sample(buf: DiffusionBuffers, score_fn: ScoreFn, x, t, noise, objective="p
     return model_mean + nonzero * torch.exp(0.5 * model_log_var) * noise
 
 
-def _chain_start(buf, shape, generator, noise, device):
+def _chain_start(buf, shape, generator, noise, device, mesh=None):
     """Shared set-up of the reverse chains: the buffers on the device, the
-    draw function ``(tag, shape) -> noise`` and the centred starting state."""
+    draw function ``(tag, shape) -> noise`` (under a mesh: the rank's rows
+    of the whole batch's draw) and the centred starting state."""
     device = resolve_device(device)
     if noise is not None:
-        def draw(tag, shape):
+        def draw_all(tag, shape):
             return torch.as_tensor(noise(tag, shape), dtype=torch.float32, device=device)
     elif generator is not None:
-        def draw(tag, shape):
+        def draw_all(tag, shape):
             return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
     else:
         raise ValueError("a reverse chain needs a torch.Generator or a noise hook")
+    if mesh_size(mesh) == 1:
+        draw = draw_all
+    else:
+        rows = local_rows(shape[0], mesh)
+
+        def draw(tag, shape):
+            return draw_all(tag, shape)[rows]
     return buf.to(device), draw, center_zero(draw("init", tuple(shape)))
 
 
 @torch.no_grad()
 def p_sample_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=None,
-                  objective: str = "pred_noise", noise=None, device="cuda"):
+                  objective: str = "pred_noise", noise=None, device="cuda", mesh=None):
     """Full ancestral reverse chain, T score evaluations. The blow-up guard
-    (clamp to +-1000) is applied after every step."""
-    buf, draw, mol = _chain_start(buf, shape, generator, noise, device)
+    (clamp to +-1000) is applied after every step. ``mesh``: see the module
+    docstring (``shape[0]`` must be a multiple of its size)."""
+    buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
     for t_scalar in range(buf.num_timesteps - 1, -1, -1):
-        t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=mol.device)
+        t = torch.full((mol.shape[0],), t_scalar, dtype=torch.long, device=mol.device)
         mol = p_sample(buf, score_fn, mol, t, draw(t_scalar, tuple(shape)), objective,
                        t_scalar)
         mol = center_zero(mol.clamp(-1000.0, 1000.0))
@@ -237,11 +252,11 @@ def ddim_step(buf: DiffusionBuffers, score_fn: ScoreFn, x, tau: int, tau_prev: i
 def ddim_sample_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=None,
                      sample_steps: int = 100, eta: float = 0.0,
                      objective: str = "pred_noise", clip_x0: Optional[float] = 10.0,
-                     noise=None, device="cuda"):
+                     noise=None, device="cuda", mesh=None):
     """Strided reverse chain: ``sample_steps`` score evaluations instead of
-    T. Clamp, centring and the per-step noise tags follow
+    T. Clamp, centring, the per-step noise tags and ``mesh`` follow
     :func:`p_sample_loop`."""
-    buf, draw, mol = _chain_start(buf, shape, generator, noise, device)
+    buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
     taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
     for tau, tau_prev in zip(taus.tolist(), prev_taus.tolist()):
         mol = ddim_step(buf, score_fn, mol, tau, tau_prev, draw(tau, tuple(shape)), eta,
@@ -253,17 +268,19 @@ def ddim_sample_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=
 @torch.no_grad()
 def dpm_solver_pp_2m_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=None,
                           sample_steps: int = 100, objective: str = "pred_noise",
-                          clip_x0: Optional[float] = 10.0, noise=None, device="cuda"):
+                          clip_x0: Optional[float] = 10.0, noise=None, device="cuda",
+                          mesh=None):
     """DPM-Solver++(2M): second-order multistep ODE sampler (Lu et al. 2022,
     data-prediction form). One score evaluation per step like DDIM; each
     update extrapolates the x0 prediction linearly in log-SNR from the
     previous evaluation. The first step and the final hop (``tau_prev < 0``:
     abar -> 1, sigma -> 0, lambda -> +inf) are first order, and the final
     update is exactly ``x = x0_hat``. Deterministic after the initial draw.
+    ``mesh`` as in :func:`p_sample_loop`.
     """
-    buf, _, mol = _chain_start(buf, shape, generator, noise, device)
+    buf, _, mol = _chain_start(buf, shape, generator, noise, device, mesh)
     taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
-    b = shape[0]
+    b = mol.shape[0]
 
     def log_snr_half(abar):  # lambda = log(alpha/sigma) = 0.5 log(abar/(1-abar))
         return 0.5 * (torch.log(abar) - torch.log1p(-abar))
@@ -450,12 +467,14 @@ class GaussianDiffusion:
 
     def sample(self, params, batch_size: int, generator=None,
                sample_steps: Optional[int] = None, eta: float = 0.0, solver: str = "ddim",
-               noise=None, device="cuda"):
+               noise=None, device="cuda", mesh=None):
         """Draw i.i.d. samples in data units through the plain network:
-        (batch, N, 3) on ``device``. ``generator`` must live on that device."""
+        (batch, N, 3) on ``device``. ``generator`` must live on that device.
+        ``mesh``: each rank computes its rows of the batch and every rank
+        gets all of it, equal to the unsharded samples."""
         return self.make_fused_sample_fn(
             params, batch_size, kernel="xla", sample_steps=sample_steps, eta=eta,
-            solver=solver, device=device,
+            solver=solver, device=device, mesh=mesh,
         )(generator, noise=noise)
 
     def resolve_sample_kernel(self, kernel: str, batch_size: int, device) -> str:
@@ -472,7 +491,7 @@ class GaussianDiffusion:
 
     def make_fused_sample_fn(self, params, batch_size: int, kernel: str = "auto",
                              sample_steps: Optional[int] = None, eta: float = 0.0,
-                             solver: str = "ddim", device="cuda"):
+                             solver: str = "ddim", device="cuda", mesh=None):
         """Sampling closure with the weights bound once:
         ``sample(generator=None, noise=None) -> (batch, N, 3)`` in data units.
 
@@ -491,10 +510,20 @@ class GaussianDiffusion:
 
         The fused paths take one scalar t per score call (every chain of a
         batch is at the same timestep).
+
+        ``mesh``: each rank samples ``batch_size / size`` (the gate of
+        "auto" sees that count) and the result is gathered on every rank.
+        The plain network draws the whole batch's noise and keeps the
+        rank's rows, so its samples do not depend on the mesh; the fused
+        paths draw only their own rows from a generator seeded from the
+        caller's and the rank, as the JAX package folds the device index
+        into the key. Their samples are i.i.d. either way.
         """
-        device = resolve_device(device)
+        device = entry_device(device, mesh)
         m = self.model
-        kernel = self.resolve_sample_kernel(kernel, batch_size, device)
+        n_ranks = mesh_size(mesh)
+        local_rows(batch_size, mesh)  # batch_size must divide over the mesh
+        kernel = self.resolve_sample_kernel(kernel, batch_size // n_ranks, device)
 
         def one_t(t_norm):  # a host float from the loops, else the batch's vector
             return t_norm if isinstance(t_norm, float) else t_norm[0]
@@ -530,12 +559,26 @@ class GaussianDiffusion:
         score_fn.scalar_t = kernel != "xla"
         loop = self._sample_loop_fn(sample_steps, eta, solver)
         shape = (batch_size, self.num_atoms, 3)
+        per_rank = kernel != "xla" and n_ranks > 1
 
         def sample(generator=None, noise=None):
-            mol = loop(self.buffers, score_fn, shape, generator, objective=self.objective,
-                       noise=noise, device=device)
-            return mol * self.norm_factor
+            if per_rank and noise is None:
+                mol = loop(self.buffers, score_fn, (batch_size // n_ranks, *shape[1:]),
+                           _rank_generator(generator, mesh), objective=self.objective,
+                           device=device)
+            else:
+                mol = loop(self.buffers, score_fn, shape, generator, objective=self.objective,
+                           noise=noise, device=device, mesh=mesh)
+            return gather(mol * self.norm_factor, mesh)
 
         sample.kernel = kernel
         sample.score_fn = score_fn
         return sample
+
+
+def _rank_generator(generator: torch.Generator, mesh) -> torch.Generator:
+    """A generator for this rank's own rows: seeded from one draw of the
+    caller's ``generator`` (which so advances alike on every rank) plus the
+    rank."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    return torch.Generator(generator.device).manual_seed(seed + mesh.rank)

@@ -11,7 +11,12 @@
   draw of the coordinates' shape per step, so a trajectory does not depend
   on the chunking. The generator state is part of :attr:`state`, so a run
   resumed with :meth:`load_state` continues the uninterrupted trajectory.
-- Parallel chains are the leading batch axis.
+- Parallel chains are the leading batch axis. With a ``mesh``
+  (:mod:`twoforone_torch.parallel.mesh`) rank r of W holds the chains
+  ``[r n/W, (r+1) n/W)``; each step every rank draws the noise of all
+  ``n`` chains from the run's generator and keeps its rows, so a sharded run
+  equals the unsharded one chain for chain. The saved frames and the
+  :attr:`state` are gathered, and only rank 0 writes exports and logs.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from twoforone_torch.ops.geometry import center_zero
-from twoforone_torch.utils.device import resolve_device
+from twoforone_torch.parallel.mesh import entry_device, gather, local_rows
 
 ForceFn = Callable[[torch.Tensor], tuple]  # x -> (potential, forces)
 
@@ -64,6 +69,10 @@ class LangevinSimulation:
     each force component. ``steps_per_chunk`` sets how many steps run
     between host copies of the saved frames (default: at most 2^16 saved
     chain-frames on the device).
+
+    ``mesh`` shards the chains over its ranks (``n_sims`` must be a
+    multiple of its size); every rank then runs ``simulate`` together, and
+    each gets the whole trajectory.
     """
 
     force_fn: ForceFn
@@ -86,14 +95,17 @@ class LangevinSimulation:
     restraint_k: float = 0.0
     max_force: Optional[float] = None
     device: object = "cuda"
+    mesh: Optional[object] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        self.device = entry_device(self.device, self.mesh)
         ic = np.asarray(self.initial_coordinates, dtype=np.float32)
         if ic.ndim != 3:
             raise ValueError("initial_coordinates shape must be [frames, beads, dimensions]")
         self.n_sims, self.n_beads, self.n_dims = ic.shape
         self._initial_x = ic
+        self._rows = local_rows(self.n_sims, self.mesh)
+        self._writer = self.mesh is None or self.mesh.rank == 0
 
         if self.length % self.save_interval != 0:
             raise ValueError("The save_interval must be a factor of the simulation length")
@@ -123,6 +135,7 @@ class LangevinSimulation:
                     "is None (i.e., infinite)."
                 )
 
+        # Only the writer (rank 0) looks for files it would overwrite.
         if self.export_interval is not None:
             if self.filename is None:
                 raise RuntimeError("Must specify filename if export_interval isn't None")
@@ -131,7 +144,7 @@ class LangevinSimulation:
                     "Simulation saving is not implemented if more than 1000 files "
                     "will be generated"
                 )
-            if os.path.isfile(f"{self.filename}_coords_000.npy"):
+            if self._writer and os.path.isfile(f"{self.filename}_coords_000.npy"):
                 raise ValueError(
                     f"{self.filename}_coords_000.npy already exists; choose a "
                     "different filename."
@@ -148,7 +161,7 @@ class LangevinSimulation:
                         "log_type=='write'"
                     )
                 self._log_file = self.filename + "_log.txt"
-                if os.path.isfile(self._log_file):
+                if self._writer and os.path.isfile(self._log_file):
                     raise ValueError(
                         f"{self._log_file} already exists; choose a different filename."
                     )
@@ -161,35 +174,41 @@ class LangevinSimulation:
 
     # ------------------------------------------------------------------ state
     def _init_state(self):
-        x = torch.from_numpy(self._initial_x).to(self.device)
+        x = torch.from_numpy(self._initial_x[self._rows]).to(self.device)
         v = torch.zeros_like(x) if self.friction is not None else None
         return x, v
 
     @property
     def state(self) -> dict:
-        """Checkpointable integrator state (x, v, t, generator state)."""
+        """Checkpointable integrator state (x, v, t, generator state), of
+        all chains (under a mesh every rank reads it together)."""
         if self._state is None:
             self._state = self._init_state()
         x, v = self._state
         return {
-            "x": x.cpu().numpy(),
-            "v": None if v is None else v.cpu().numpy(),
+            "x": gather(x, self.mesh).cpu().numpy(),
+            "v": None if v is None else gather(v, self.mesh).cpu().numpy(),
             "t": self._t,
             "key": self._gen.get_state().numpy(),
         }
 
     def load_state(self, state: dict):
-        x = torch.as_tensor(np.asarray(state["x"], np.float32), device=self.device)
+        rows = self._rows
+        x = torch.as_tensor(np.asarray(state["x"], np.float32)[rows], device=self.device)
         v = state["v"]
-        v = None if v is None else torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+        v = None if v is None else torch.as_tensor(np.asarray(v, np.float32)[rows],
+                                                   device=self.device)
         self._state = (x, v)
         self._t = int(state["t"])
         self._gen.set_state(torch.as_tensor(np.asarray(state["key"], np.uint8)))
 
     # ------------------------------------------------------------- hot loop
     def _draw_noise(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.randn(like.shape, generator=self._gen, device=self.device,
-                           dtype=like.dtype)
+        """The step's noise for this rank's chains: all chains' draw, then
+        its rows."""
+        noise = torch.randn((self.n_sims, *like.shape[1:]), generator=self._gen,
+                            device=self.device, dtype=like.dtype)
+        return noise if self.mesh is None else noise[self._rows]
 
     def one_step(self, x, v, beta, noise):
         """Centre, evaluate forces, and advance one step with the given
@@ -284,21 +303,25 @@ class LangevinSimulation:
                         )
             n_saves = chunk // self.save_interval
             sl = slice(save_idx, save_idx + n_saves)
-            coords_out[sl] = torch.stack(saved["coords"]).cpu().numpy()
+
+            def host(name):  # (n_saves, all chains, ...) on the host
+                return gather(torch.stack(saved[name]), self.mesh, dim=1).cpu().numpy()
+
+            coords_out[sl] = host("coords")
             if self.save_forces:
-                forces_out[sl] = torch.stack(saved["forces"]).cpu().numpy()
+                forces_out[sl] = host("forces")
             if self.save_potential:
-                pot = torch.stack(saved["potential"]).cpu().numpy()
+                pot = host("potential")
                 if potential_out is None:
                     potential_out = np.empty((total_saves,) + pot.shape[1:], dtype=np.float32)
                 potential_out[sl] = pot
             if ke_out is not None:
-                ke_out[sl] = torch.stack(saved["kinetic_energy"]).cpu().numpy()
+                ke_out[sl] = host("kinetic_energy")
             done += chunk
             save_idx += n_saves
             self._t += chunk
 
-            if self.export_interval is not None:
+            if self.export_interval is not None and self._writer:
                 while (save_idx - export_start) * self.save_interval >= self.export_interval:
                     n_exp = self.export_interval // self.save_interval
                     self._export_npy(coords_out, forces_out, potential_out, ke_out,
@@ -310,7 +333,7 @@ class LangevinSimulation:
                     f"saved ({time.asctime()})"
                 )
 
-        if self.export_interval is not None and export_start < save_idx:
+        if self.export_interval is not None and self._writer and export_start < save_idx:
             self._export_npy(coords_out, forces_out, potential_out, ke_out,
                              export_start, save_idx)
 
@@ -337,7 +360,7 @@ class LangevinSimulation:
         self._npy_file_index += 1
 
     def _log(self, msg: str):
-        if self.log_interval is None:
+        if self.log_interval is None or not self._writer:
             return
         if self.log_type == "print":
             print(msg)

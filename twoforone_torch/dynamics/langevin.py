@@ -16,6 +16,10 @@ kernel pair inside an eager energy (:mod:`twoforone_torch.ops.fused_score_clx`),
 gate (:func:`resolve_fused_mode`), which never picks ``"always"``: a model
 with another edge configuration than the production one runs the plain
 network unless the caller asks for the kernel.
+
+With a ``mesh`` (:mod:`twoforone_torch.parallel.mesh`) each rank runs its
+share of the chains through its own kernel call, and ``"auto"`` sees the
+chains of one rank, as the JAX package's gate sees the chains of one device.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from twoforone_torch.data.molecules import AVOGADRO, JPERKCAL, KB, KBOLTZMANN
 from twoforone_torch.dynamics.integrators import LangevinSimulation
-from twoforone_torch.utils.device import resolve_device
+from twoforone_torch.parallel.mesh import entry_device, mesh_size
 
 
 def resolve_fused_mode(model, fused: str, n_chains, device) -> str:
@@ -44,7 +48,7 @@ def resolve_fused_mode(model, fused: str, n_chains, device) -> str:
 
 def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
                             fused: str = "never", n_chains: Optional[int] = None,
-                            device="cuda"):
+                            device="cuda", mesh=None):
     """Build ``x -> (potential, forces)`` from a diffusion model at noise level t.
 
     ``params`` is the flax parameter tree (nested dict of numpy arrays, see
@@ -54,20 +58,26 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
     be called with; ``fused="auto"`` reads it. The returned function carries
     the force scale as ``.scale`` and the resolved path as ``.mode``.
 
+    ``mesh``: the chains are split over its ranks, and each rank calls the
+    function on its own ``n_chains // size`` chains, which is the count the
+    ``"auto"`` gate sees (1024 chains over 8 ranks is 128 a rank: the plain
+    network where one device would take ``"clx"``).
+
     ``fused="always"`` runs any conservative model, whatever its edge
     configuration, through one kernel launch per call. The JAX function's
     ``fused_block`` is a TPU tiling argument (chains per grid step, with the
     chains padded to a multiple of it) and is left out: the kernel takes any
     number of chains.
     """
-    device = resolve_device(device)
+    device = entry_device(device, mesh)
     buf = diffusion.buffers
     # Read from the float32 buffer, as the JAX driver does.
     sqrt_one_minus = float(buf.sqrt_one_minus_alphas_cumprod[t])
     t_norm = float(t) / diffusion.timesteps
     scale = 1.0 / (kbt_inv * sqrt_one_minus)
     model = diffusion.model
-    mode = resolve_fused_mode(model, fused, n_chains, device)
+    chains_per_rank = None if n_chains is None else n_chains // mesh_size(mesh)
+    mode = resolve_fused_mode(model, fused, chains_per_rank, device)
 
     if mode == "cl":
         from twoforone_torch.ops.fused_score_cl import augment_params_cl, fused_force_cl
@@ -111,6 +121,9 @@ class LangevinDiffusion:
     ``fused`` defaults to the plain network (``"never"``), as in the JAX
     package, so the same call runs the same path in both; ``"auto"`` and the
     kernels are asked for explicitly.
+
+    ``mesh`` shards the chains over its ranks (their count must be a
+    multiple of its size); :meth:`sample` returns all chains on every rank.
     """
 
     def __init__(
@@ -135,8 +148,9 @@ class LangevinDiffusion:
         max_force: Optional[float] = None,
         dt_scale: float = 1.0,
         device="cuda",
+        mesh=None,
     ):
-        device = resolve_device(device)
+        device = entry_device(device, mesh)
         self.norm_factor = float(diffusion.norm_factor)
         init_sample = np.asarray(init_mol, dtype=np.float32) / self.norm_factor
         buf = diffusion.buffers
@@ -151,7 +165,7 @@ class LangevinDiffusion:
 
         self.force_fn = make_diffusion_force_fn(
             diffusion, params, t, kbt_inv=self.kb_inv / temp_data,
-            fused=fused, n_chains=init_sample.shape[0], device=device,
+            fused=fused, n_chains=init_sample.shape[0], device=device, mesh=mesh,
         )
 
         if friction is None:
@@ -188,6 +202,7 @@ class LangevinDiffusion:
             restraint_k=restraint_k,
             max_force=max_force,
             device=device,
+            mesh=mesh,
         )
 
         if log:
@@ -209,7 +224,8 @@ class LangevinDiffusion:
 
     def sample(self, reference_temp: Optional[float] = None) -> np.ndarray:
         """Run the simulation; return (n_frames_total, n_beads, 3) in Angstrom
-        (all chains concatenated). ``reference_temp`` (K) enables the
+        (all chains concatenated, chains-major, on every rank of a mesh).
+        ``reference_temp`` (K) enables the
         integrator's tempering ramp."""
         reference_beta = (
             None if reference_temp is None else self.kb_inv / float(reference_temp)

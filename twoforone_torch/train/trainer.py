@@ -23,10 +23,24 @@
   layout, the optimizer state in optax's), so either package resumes a run
   the other wrote; early stop after 10 evaluations without gain; the final
   i.i.d. (and optional Langevin) evaluation.
-- One device: ``mesh`` stays None until the port has a multi-GPU layer.
-  Products run in float32 (TF32 off) and the caller's setting comes back.
+- Data parallelism over a ``mesh`` (:mod:`twoforone_torch.parallel.mesh`,
+  one process per GPU): ``batch_size`` is global, rounded down to a
+  multiple of the mesh size, and each rank draws ``batch_size / size``
+  rows from its own iterator (seed + 7919 x rank). The weights and the EMA
+  start as rank 0's. Each micro-batch's rotation, timesteps and noise are
+  drawn for the global batch from the run's generator, which every rank
+  seeds alike, and each rank keeps its rows. After the backward pass the
+  gradient is all-reduced as one flat buffer (sum over the ranks, then
+  divided by their number): the mean over the global batch. The logged
+  loss and ``eval_loss`` are means over the ranks; ``sample`` gathers, so
+  every rank scores the same samples; every rank writes its checkpoints,
+  as in the JAX package. ``DistributedDataParallel`` is not used: the loss
+  holds an input gradient taken with ``create_graph=True``, and DDP's
+  reducer is not built for the double backward.
+- Products run in float32 (TF32 off) and the caller's setting comes back.
 - Batches come from the numpy iterator :func:`batch_iterator`, the JAX
-  package's, so both packages see the same batches for the same seed.
+  package's, so both packages see the same batches for the same seed and
+  rank.
 """
 
 from __future__ import annotations
@@ -39,16 +53,25 @@ import time
 import numpy as np
 import torch
 
-from twoforone_torch.core.diffusion import GaussianDiffusion, p_sample_loop
+from twoforone_torch.core.diffusion import GaussianDiffusion, p_sample_loop, sample_timesteps
 from twoforone_torch.data.molecules import MASS_ALA2, MASS_FASTFOLDER, temp_dict
 from twoforone_torch.dynamics.langevin import LangevinDiffusion
 from twoforone_torch.evaluate.evaluators import Evaluator, sample_from_model
 from twoforone_torch.models.graph_transformer import init_params, score_forward
 from twoforone_torch.ops.geometry import random_rotation_matrices, rotate
+from twoforone_torch.parallel.mesh import (
+    all_reduce_,
+    entry_device,
+    gather,
+    local_rows,
+    mesh_size,
+    replicate,
+    shard_batch,
+)
 from twoforone_torch.train.ema import EMAConfig, ema_update, init_ema
 from twoforone_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from twoforone_torch.utils.convert import params_from_jax, params_to_jax
-from twoforone_torch.utils.device import float32_products, resolve_device
+from twoforone_torch.utils.device import float32_products
 from twoforone_torch.utils.preempt import exit_if_preempted
 
 
@@ -155,15 +178,16 @@ class Trainer:
         # ``evaluators=False`` skips the per-molecule Evaluator (golden TIC /
         # PWD / dihedral scoring) and keeps the loss evaluation, the
         # checkpoints and the sample export.
-        if mesh is not None:
-            raise NotImplementedError("the PyTorch port trains on one device (no mesh yet)")
-        self.device = resolve_device(device)
+        self.device = entry_device(device, mesh)
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
         self.gd = diffusion_model
         self.config = config
         self.mol_name = mol_name
         self.train_data, self.val_data, self.test_data = dataset
-        self.batch_size = config.batch_size
-        self.local_batch = self.batch_size
+        n_ranks = mesh_size(mesh)
+        self.batch_size = config.batch_size - (config.batch_size % n_ranks)
+        self.local_batch = self.batch_size // n_ranks
         self.grad_accum = max(1, int(getattr(config, "gradient_accumulate_every", 1) or 1))
         self.train_num_steps = config.train_iter
         self.eval_interval = config.eval_interval
@@ -176,6 +200,7 @@ class Trainer:
 
         self.net = copy.deepcopy(diffusion_model.model).to(self.device)
         self.net.load_state_dict(params_from_jax(init_params(diffusion_model.model, config.seed)))
+        replicate(self.net, mesh)
         self.ema = init_ema(self.net)
         self.optimizer, self.lr_schedule = make_optimizer(self.net, config)
         self.ema_cfg = EMAConfig(beta=config.ema_decay)
@@ -212,18 +237,47 @@ class Trainer:
                 print("Not last checkpoint available to load.")
 
     # ------------------------------------------------------------- one step
+    def _draws(self, generator: torch.Generator, local: int, rotation: bool, given=None):
+        """This rank's rows of one micro-batch's draws for the global batch
+        (``local`` rows a rank): the rotation (when ``rotation``), then t,
+        then the noise, each drawn from ``generator`` unless ``given``
+        holds it (for the global batch, as another implementation drew it).
+        """
+        given = given or {}
+        b = local * mesh_size(self.mesh)
+        rows = local_rows(b, self.mesh)
+        out = {}
+        if rotation:
+            rot = given.get("rotation")
+            if rot is None:
+                rot = random_rotation_matrices(generator, b)
+            out["rotation"] = torch.as_tensor(rot, dtype=torch.float32, device=self.device)[rows]
+        t = given.get("t")
+        if t is None:
+            t = sample_timesteps(self.gd.buffers_on(self.device), generator, b,
+                                 self.gd.t_diff_interval, self.device)
+        noise = given.get("noise")
+        if noise is None:
+            noise = torch.randn((b, self.gd.num_atoms, 3), generator=generator,
+                                dtype=torch.float32, device=self.device)
+        out["t"] = torch.as_tensor(t, dtype=torch.long, device=self.device)[rows]
+        out["noise"] = torch.as_tensor(noise, dtype=torch.float32, device=self.device)[rows]
+        return out
+
     def _train_step(self, batch, generator: torch.Generator, draws=None) -> dict:
-        """One optimizer step. ``batch`` is (B, N, 3) or (accum, B, N, 3):
-        the gradients of ``loss/accum`` are summed over the micro-batches
-        before the one update, each micro-batch rotated on its own.
+        """One optimizer step. ``batch`` is this rank's (B, N, 3) or
+        (accum, B, N, 3): the gradients of ``loss/accum`` are summed over the
+        micro-batches, each rotated on its own, then averaged over the
+        ranks, before the one update.
 
         ``draws`` (tests): one dict per micro-batch with the ``rotation``
-        (B, 3, 3), ``t`` (B,) and ``noise`` (B, N, 3) another implementation
-        drew; what is missing is drawn from ``generator``. Returns the
-        step's metrics as device tensors: ``loss``, ``kl_at_T``, ``kl_max``.
+        (B, 3, 3), ``t`` (B,) and ``noise`` (B, N, 3) of the global batch
+        that another implementation drew; what is missing is drawn from
+        ``generator``. Returns the step's metrics as device tensors, over
+        the global batch: ``loss``, ``kl_at_T``, ``kl_max``.
         """
         with float32_products():
-            batch = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+            batch = shard_batch(batch, self.mesh, self.device)
             if batch.ndim == 3:
                 batch = batch[None]
             accum = batch.shape[0]
@@ -231,15 +285,12 @@ class Trainer:
             grads = [torch.zeros_like(p) for p in params]
             losses, kls = [], []
             for i in range(accum):
-                d = draws[i] if draws is not None else {}
                 mb = batch[i]
+                d = self._draws(generator, mb.shape[0], self.config.data_aug,
+                                draws[i] if draws is not None else None)
                 if self.config.data_aug:
-                    rot = d.get("rotation")
-                    if rot is None:
-                        rot = random_rotation_matrices(generator, mb.shape[0])
-                    mb = rotate(mb, torch.as_tensor(rot, dtype=torch.float32, device=self.device))
-                loss, aux = self.gd.net_loss(self.net, mb, generator, t=d.get("t"),
-                                             noise=d.get("noise"))
+                    mb = rotate(mb, d["rotation"])
+                loss, aux = self.gd.net_loss(self.net, mb, t=d["t"], noise=d["noise"])
                 if loss.requires_grad:  # not so for an energy that ignores x
                     for g, gi in zip(grads, torch.autograd.grad(loss, params,
                                                                 allow_unused=True)):
@@ -247,10 +298,18 @@ class Trainer:
                             g.add_(gi)
                 losses.append(loss.detach())
                 kls.append(aux["kl_at_T"])
-            kl_step = torch.stack(kls).max()
+            kl_step = all_reduce_(torch.stack(kls).max(), self.mesh, "max")
             self.kl_max = torch.maximum(self.kl_max, kl_step)
-            self._update([g / accum for g in grads] if accum > 1 else grads)
+            if accum > 1:
+                grads = [g / accum for g in grads]
+            if self.mesh is not None:
+                # One flat buffer, one collective: the mean over the global batch.
+                flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
+                grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]),
+                                                      grads)]
+            self._update(grads)
             loss = losses[0] if accum == 1 else torch.stack(losses).sum() / accum
+            loss = all_reduce_(loss, self.mesh)
         return {"loss": loss, "kl_at_T": kl_step, "kl_max": self.kl_max}
 
     def _update(self, grads) -> None:
@@ -277,17 +336,22 @@ class Trainer:
     # ---------------------------------------------------------------- driving
     def eval_loss(self, data: np.ndarray, val_iters: int, generator: torch.Generator,
                   partition_name: str = "val") -> float:
-        """Mean loss of the EMA weights over ``val_iters`` batches of ``data``."""
+        """Mean loss of the EMA weights over ``val_iters`` batches of ``data``
+        (global batches: each rank draws its rows, and the mean is taken
+        over the ranks)."""
         print(f"val iters {val_iters}")
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=generator.device))
-        it = batch_iterator(data, self.local_batch, seed=seed)
+        it = batch_iterator(data, self.local_batch, seed=(seed + 7919 * self.rank) % 2**31)
         total = torch.zeros((), device=self.device)
         with float32_products(), torch.no_grad():
             for _ in range(val_iters):
-                loss, _ = self.gd.net_loss(self.ema, next(it), generator, create_graph=False)
+                mb = shard_batch(next(it), self.mesh, self.device)
+                d = self._draws(generator, mb.shape[0], rotation=False)
+                loss, _ = self.gd.net_loss(self.ema, mb, t=d["t"], noise=d["noise"],
+                                           create_graph=False)
                 total += loss
-        loss = float(total) / max(1, val_iters)
+        loss = float(all_reduce_(total, self.mesh)) / max(1, val_iters)
         if self.writer is not None:
             self.writer.add_scalar(f"Loss {partition_name}", loss, int(self.step))
         print(f"Loss {partition_name} \t {loss}")
@@ -296,7 +360,8 @@ class Trainer:
     def sample(self, num_samples: int, generator: torch.Generator = None) -> np.ndarray:
         """Sample from the EMA weights with the plain network's full
         ancestral chain, in batches of the training batch size, truncated to
-        ``num_samples``: (num_samples, N, 3) numpy."""
+        ``num_samples``: (num_samples, N, 3) numpy, the same on every rank
+        (each rank computes its rows of a batch, then they are gathered)."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
 
@@ -306,8 +371,9 @@ class Trainer:
         def fn(b, gen):
             with float32_products():
                 mol = p_sample_loop(self.gd.buffers, score_fn, (b, self.gd.num_atoms, 3), gen,
-                                    objective=self.gd.objective, device=self.device)
-            return mol * self.gd.norm_factor
+                                    objective=self.gd.objective, device=self.device,
+                                    mesh=self.mesh)
+            return gather(mol * self.gd.norm_factor, self.mesh)
 
         return sample_from_model(fn, num_samples, self.batch_size, generator)
 
@@ -365,7 +431,7 @@ class Trainer:
         cfg = self.config
         generator = torch.Generator(self.device).manual_seed(cfg.seed + 1)
         data = np.asarray(self.train_data.data)
-        it = batch_iterator(data, self.local_batch, seed=cfg.seed)
+        it = batch_iterator(data, self.local_batch, seed=cfg.seed + 7919 * self.rank)
         val_iters = max(1, int(cfg.iterations_on_val
                                * max(1, len(self.val_data) // self.batch_size)))
 
@@ -526,8 +592,12 @@ class Trainer:
                         self.writer.add_scalar(k + f"_FINAL_langevin_t{t_diff}_{evalname}", v)
 
     def _save_samples(self, sampled_mol: np.ndarray, milestone: str):
-        """Save samples as .npy plus a 100-frame PDB."""
+        """Save samples as .npy plus a 100-frame PDB (rank 0 only: every
+        rank holds the same samples)."""
         from twoforone_torch.data.pdb import save_pdb
+
+        if self.rank != 0:
+            return
 
         np.save(os.path.join(self.results_folder, f"sample-{milestone}.npy"), sampled_mol)
         save_pdb(

@@ -257,10 +257,11 @@ def checkpoint_path(results_folder: str, name: str) -> str:
 
 def save_checkpoint(results_folder: str, name: str, state: dict) -> str:
     """Write ``state`` to ``<results_folder>/model-<name>.msgpack`` through a
-    ``.tmp`` file and an atomic rename; returns the path."""
+    ``.tmp`` file of this process and an atomic rename, so that the ranks of
+    a data-parallel run may all write to one folder; returns the path."""
     os.makedirs(results_folder, exist_ok=True)
     path = checkpoint_path(results_folder, name)
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         f.write(msgpack_serialize(state))
     os.replace(tmp, path)

@@ -101,8 +101,12 @@ class TrainConfig:
 
     # -- serialization --------------------------------------------------------
     def to_json(self, path: str) -> None:
-        with open(path, "w") as f:
+        """Write through a file of this process and an atomic rename (the
+        ranks of a data-parallel run may share the folder)."""
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             json.dump(dataclasses.asdict(self), f, indent=2)
+        os.replace(tmp, path)
 
     @classmethod
     def from_dict(cls, d: dict) -> "TrainConfig":
