@@ -38,6 +38,9 @@ models, with bench.py's settings:
   and two training steps in a world of one over NCCL, then two ranks that
   share the one card over gloo (chignolin and trp-cage Langevin, sharded
   DDIM-100, training steps, and the sampling CLI under two ranks).
+- bfloat16 score-network compute: bench.py's ``bf16=True`` on every force
+  path, sampling, training and the dipeptide positive control's bfloat16
+  Langevin stage.
 
 Phases (any failure exits non-zero):
 
@@ -112,6 +115,22 @@ Phases (any failure exits non-zero):
    fails or hangs fails the phase. The two-rank rates are two processes on
    one card, not a scaling figure. The ranks' launches are added to the
    ``kernels`` line; those of the CLI's processes are not counted.
+13. bfloat16 score-network compute: (a) bench.py's configuration,
+   ``LangevinDiffusion(bf16=True, fused="auto")``: chignolin (K1) and
+   trp-cage (clx) at 1000 chains give the ``bf16=False`` trajectory bit for
+   bit with the same launches; villin and protein G at 100 chains resolve to
+   the plain network, whose bfloat16 trajectory after 10 steps is held
+   against the float32 one within C_RULE x the JAX package's own distance +
+   2^-8 of max |x| (``scripts/torch_bf16_bars.py``), with both rates and the
+   device's idle share; (b) ``sample(bf16=True)``, DDIM-100 on chignolin at
+   batch 1024: the bead covariance within 0.05 of the float32 chain's,
+   samples/s of both; (c) 100 trainer steps of a bfloat16 model at chain10's
+   published configuration (losses finite and falling, weights, EMA and
+   Adam's moments float32, no kernel); (d) ``run_positive_control`` with
+   ``bf16_compare=True`` at the JAX package's CI tier (3500 steps, 64 chains
+   x 8000 steps, T=250, 31 bins): the JAX function's keys, every frame
+   finite, ``js_bf16_vs_f32 < 0.1`` and ``pwd_js_bf16_vs_f32 < 0.01``, the
+   wall seconds of each stage.
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -168,6 +187,14 @@ DEFAULT_EDGES = dict(use_intrinsic_coords=False, use_abs_coords=True, use_distan
 CHIGNOLIN = dict(name="chain10", label="chignolin", n=10, nf=64, norm=3.113133430480957, temp=340, t_noise=20)
 TRP_CAGE = dict(name="chain20", label="trp_cage", n=20, nf=128, norm=5.08211088180542, temp=290, t_noise=15)
 BBA = dict(name="chain28", label="bba", n=28, nf=96, norm=6.294918537139893, temp=325, t_noise=15)
+# Phase 13: the staged villin and protein-G weights at bench.py's protein
+# settings (its protein-G noise level t=5, which villin shares; the
+# molecules' data std and temperatures).
+VILLIN = dict(name="chain35", label="villin", n=35, nf=128, norm=6.082900047302246, temp=360,
+              t_noise=5)
+PROTEIN_G = dict(name="chain56", label="protein_g", n=56, nf=128, norm=6.354289531707764,
+                 temp=350, t_noise=5)
+BF16_CHAINS = 100
 
 CHAINS = (100, 1000)
 WARMUP_STEPS = 100
@@ -386,21 +413,26 @@ def normal(seed, shape, dev):
         np.random.default_rng(seed).normal(size=shape).astype(np.float32)).to(dev)
 
 
-def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev, mesh=None):
+def start_state(chains, n, norm_factor):
+    """The seeded random start of every Langevin run here, in data units."""
+    rng = np.random.default_rng(0)
+    init = rng.normal(size=(chains, n, 3)).astype(np.float32)
+    return (init - init.mean(axis=1, keepdims=True)) * norm_factor
+
+
+def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev, mesh=None,
+             bf16=False):
     """bench.py's Langevin settings (dt 2e-3 ps, masses 12, friction 1,
     restraint_k 50, max_force 1e3) from a seeded random start; ``mesh``
     shards the chains over its ranks."""
     from twoforone_torch.dynamics.langevin import LangevinDiffusion
 
-    rng = np.random.default_rng(0)
-    init = rng.normal(size=(chains, spec["n"], 3)).astype(np.float32)
-    init = (init - init.mean(axis=1, keepdims=True)) * gd.norm_factor
     return LangevinDiffusion(
-        gd, params, init, n_timesteps=n_timesteps, save_interval=save_interval,
-        t=spec["t_noise"], temp_data=spec["temp"], temp_sim=spec["temp"], dt=2e-3,
-        masses=[12.0] * spec["n"], friction=1.0, kb="consistent", random_seed=0,
-        steps_per_chunk=1000, log=False, fused=fused, restraint_k=50.0, max_force=1e3,
-        device=dev, mesh=mesh,
+        gd, params, start_state(chains, spec["n"], gd.norm_factor), n_timesteps=n_timesteps,
+        save_interval=save_interval, t=spec["t_noise"], temp_data=spec["temp"],
+        temp_sim=spec["temp"], dt=2e-3, masses=[12.0] * spec["n"], friction=1.0,
+        kb="consistent", random_seed=0, steps_per_chunk=1000, log=False, fused=fused,
+        bf16=bf16, restraint_k=50.0, max_force=1e3, device=dev, mesh=mesh,
     )
 
 
@@ -1518,6 +1550,280 @@ def mesh_phase_in(tmp, reset_counts, add_counts, dev, phase3_sps):
     return out, tuple(int(c) for c in rank_counts)
 
 
+# ------------------------------------------------------------------ phase 13
+# bfloat16 score-network compute. (a) bench.py's configuration,
+# LangevinDiffusion(bf16=True, fused="auto"): on chain10 (K1) and chain20
+# (clx) at 1000 chains the kernels compute in float32 and ignore the flag, so
+# the trajectory is the float32 run's bit for bit; at villin and protein-G
+# width "auto" resolves to the plain network, which then runs in bfloat16.
+# (b) DDIM-100 through sample(bf16=True). (c) Steps of the trainer on a
+# bfloat16 model. (d) The dipeptide positive control with its bfloat16
+# Langevin stage, at the JAX package's CI tier.
+BF16_BITS_STEPS = 200  # bench.py runs 10 000-step chunks; a comparison needs few
+BF16_WARMUP = 20
+BF16_TIMED = 200  # plain-network steps timed at 100 chains (host-bound)
+BF16_PROFILED = 20  # a multiple of BF16_WARMUP, the runs' save interval
+# 10 steps bfloat16 against float32 from the same start and noise, in units
+# of max |x|: the rule of tests/test_torch_bf16.py, C_RULE = 2 times the JAX
+# package's own distance on these inputs plus FLOOR = 2**-8
+# (scripts/torch_bf16_bars.py, JAX on the CPU). The card has no JAX, so the
+# port's bfloat16 trajectory is held against its own float32 one.
+BF16_TRAJ_BAR = {"chain35": 0.0065207873931735095, "chain56": 0.0063710940360593}
+BF16_DDIM_BATCH = 1024
+TOL_BEAD_COV = 0.05  # tests/test_diffusion.py's rule, relative Frobenius
+BF16_TRAIN_STEPS = 100  # phase 10 takes 200; losses compared over 20 steps at each end
+BF16_TRAIN_WARMUP = 20  # steps before the rate is timed
+# The JAX package's CI tier (tests/test_positive_control.py), on which its
+# bars were calibrated: no budget is cut. The trainer's evaluators are left
+# out (they draw the Ramachandran map, and the card has no matplotlib); the
+# control's own scores do not use them.
+DIPEPTIDE_CONTROL = dict(train_iter=3500, n_data=40000, batch_size=256, num_samples=2048,
+                         langevin_chains=64, langevin_steps=8000, langevin_save_interval=50,
+                         n_bins=31, final_eval_samples=256, timesteps=250, t_noise=4, seed=0)
+BAR_BF16_VS_F32, BAR_BF16_PWD = 0.1, 0.01
+# The keys run_positive_control's results carry: the JAX function's
+# (tests/test_torch_positive_control.py holds the two sets equal).
+DIPEPTIDE_CONTROL_KEYS = (
+    "js_bf16_vs_f32", "js_floor", "js_iid", "js_langevin_bf16", "js_langevin_f32",
+    "langevin_chains", "langevin_dt_scale", "langevin_ergodic", "langevin_max_occupancy_error",
+    "langevin_min_hop_fraction", "langevin_steps", "nonfinite_frac_iid",
+    "nonfinite_frac_langevin", "pwd_js_bf16_vs_f32", "pwd_js_floor", "pwd_js_iid",
+    "pwd_js_langevin_f32", "results_folder", "t_noise_langevin",
+)
+
+
+def wall_and_busy_ms(fn):
+    """(wall ms, device-busy ms) of one call of ``fn`` under
+    ``torch.profiler``: the kernels' summed device time against the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(ev.device_time / 1e3 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(ev, "is_user_annotation", False))
+    return wall_ms, busy_ms
+
+
+def bead_cov(s):
+    s = np.asarray(s, np.float64)
+    return np.einsum("bic,bjc->ij", s, s) / (s.shape[0] * 3)
+
+
+def bf16_phase(reset_counts, add_counts, dev, train_sps):
+    """Phase 13 (a)-(d); returns the numbers it measured."""
+    import tempfile
+
+    from twoforone_torch.core.diffusion import GaussianDiffusion
+    from twoforone_torch.data.datasets import CGDataset
+    from twoforone_torch.data.molecules import FOLDED_PDB_DIR, Molecules
+    from twoforone_torch.data.pdb import load_pdb
+    from twoforone_torch.data.synthetic import chain10_dataset
+    from twoforone_torch.models import get_model
+    from twoforone_torch.train import positive_control as pc
+    from twoforone_torch.train.trainer import Trainer, batch_iterator
+    from twoforone_torch.utils.artifacts import load_ema_params, trained_dir
+    from twoforone_torch.utils.config import TrainConfig
+    from twoforone_torch.utils.profiling import PhaseTimer
+
+    out = {}
+    log(f"phase13 cuts to step counts: (a) {BF16_BITS_STEPS} steps a bit comparison at 1000 "
+        f"chains (bench.py: chunks of 10 000), {BF16_TIMED} timed plain-network steps at "
+        f"{BF16_CHAINS} chains; (c) {BF16_TRAIN_STEPS} training steps (the staged chain10: "
+        f"50 000); (b) and (d) none (DDIM-100 as phase 6; the JAX package's CI tier)")
+    # ---------------------------------------------------------------- (a)
+    for spec, mode, per_step in ((CHIGNOLIN, "cl", (1, 0, 0, 0)), (TRP_CAGE, "clx", (0, 3, 3, 0))):
+        g, w = make_gd(spec), load_ema_params(spec["name"])
+        trajs, got = {}, {}
+        for bf16 in (False, True):
+            ld = make_sim(g, w, spec, 1000, "auto", BF16_BITS_STEPS, BF16_BITS_STEPS // 2, dev,
+                          bf16=bf16)
+            reset_counts()
+            trajs[bf16] = ld.sample() if ld.force_fn.mode == mode else None
+            got[bf16] = add_counts()
+            del ld
+        want = tuple(c * BF16_BITS_STEPS for c in per_step)
+        same = trajs[True] is not None and np.array_equal(trajs[True], trajs[False])
+        ok = same and got[True] == got[False] == want
+        log(f"phase13 (a) {spec['label']} LangevinDiffusion(bf16=True, fused='auto') chains=1000 "
+            f"steps={BF16_BITS_STEPS}: path={mode} same_bits_as_bf16_false={same} "
+            f"launches_k1_fwd_bwd_k4 bf16={got[True]} f32={got[False]} (want {want}) ok={ok}")
+        if not ok:
+            fail(f"phase13 (a): bf16=True changed the {mode} trajectory, or its launches")
+
+    for spec in (VILLIN, PROTEIN_G):
+        g, w = make_gd(spec), load_ema_params(spec["name"])
+        noise = normal(9, (10, BF16_CHAINS, spec["n"], 3), dev)
+        finals, rates, profiled = {}, {}, {}
+        for bf16 in (False, True):
+            ld = make_sim(g, w, spec, BF16_CHAINS, "auto", 10, 10, dev, bf16=bf16)
+            draws = iter(noise)
+            ld.sim._draw_noise = lambda like, draws=draws: next(draws)
+            reset_counts()
+            finals[bf16] = ld.sample()
+            ld = make_sim(g, w, spec, BF16_CHAINS, "auto", 10_000_000, BF16_WARMUP, dev,
+                          bf16=bf16)
+            rates[bf16], finite = timed_run(ld, BF16_WARMUP, BF16_TIMED)
+            wall_ms, busy_ms = wall_and_busy_ms(
+                lambda ld=ld: ld.sim.simulate(sub_interval=BF16_PROFILED))
+            profiled[bf16] = dict(wall_ms_per_step=wall_ms / BF16_PROFILED,
+                                  device_busy_ms_per_step=busy_ms / BF16_PROFILED,
+                                  device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms))
+            launched = add_counts()
+            if ld.force_fn.mode != "never" or launched != (0, 0, 0, 0) or not finite:
+                fail(f"phase13 (a) {spec['label']}: 'auto' resolved to {ld.force_fn.mode!r}, "
+                     f"launches {launched}, finite={finite}")
+            del ld
+        scale = float(np.abs(finals[False]).max())
+        diff = float(np.abs(finals[True] - finals[False]).max()) / scale
+        bar = BF16_TRAJ_BAR[spec["name"]]
+        ok = bool(np.isfinite(finals[True]).all()) and 0.0 < diff <= bar
+        out[f"{spec['label']}_never_{BF16_CHAINS}"] = dict(
+            steps_per_s_bf16=rates[True], steps_per_s_f32=rates[False],
+            ten_step_diff_in_max_x=diff, bar=bar, max_abs_x=scale,
+            profiled_bf16=profiled[True], profiled_f32=profiled[False])
+        log(f"phase13 (a) {spec['label']} N={spec['n']} chains={BF16_CHAINS} path=never: "
+            f"10-step bf16 vs f32 max_coord_diff/max|x|={diff:.3e} (bar {bar:.3e}, JAX's own "
+            f"distance x2 + 2^-8) max|x|={scale:.3f} steps_per_s bf16={rates[True]:.2f} "
+            f"f32={rates[False]:.2f} bf16 {json.dumps(profiled[True])} "
+            f"f32 {json.dumps(profiled[False])} ok={ok}")
+        if not ok:
+            fail(f"phase13 (a) {spec['label']}: the bf16 trajectory is outside its bar")
+
+    # ---------------------------------------------------------------- (b)
+    gd, params = make_gd(CHIGNOLIN), load_ema_params(CHIGNOLIN["name"])
+    samples, sps = {}, {}
+    for bf16 in (False, True):
+        gen = torch.Generator(dev).manual_seed(3)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples[bf16] = gd.sample(params, BF16_DDIM_BATCH, gen, sample_steps=100, device=dev,
+                                  bf16=bf16).cpu().numpy()
+        torch.cuda.synchronize()
+        sps[bf16] = BF16_DDIM_BATCH / (time.perf_counter() - t0)
+        if add_counts() != (0, 0, 0, 0):
+            fail("phase13 (b): a kernel ran in the plain sampler")
+    c32 = bead_cov(samples[False])
+    rel = float(np.linalg.norm(bead_cov(samples[True]) - c32) / np.linalg.norm(c32))
+    com = float(np.abs(samples[True].mean(axis=1)).max()) / gd.norm_factor
+    ok = (bool(np.isfinite(samples[True]).all()) and rel < TOL_BEAD_COV and com <= TOL_COM
+          and not np.array_equal(samples[True], samples[False]))
+    out["chignolin_ddim100_plain"] = dict(batch=BF16_DDIM_BATCH, samples_per_s_bf16=sps[True],
+                                          samples_per_s_f32=sps[False], bead_cov_rel_diff=rel)
+    log(f"phase13 (b) chignolin sample(bf16=True) DDIM-100 batch={BF16_DDIM_BATCH}: "
+        f"bead_cov_rel_diff_vs_f32={rel:.4e} (limit {TOL_BEAD_COV}) com={com:.2e} "
+        f"samples_per_s bf16={sps[True]:.2f} f32={sps[False]:.2f} ok={ok}")
+    if not ok:
+        fail("phase13 (b): the bf16 samples' bead covariance is off the f32 chain's")
+
+    # ---------------------------------------------------------------- (c)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        with open(os.path.join(trained_dir("chain10"), "config.json")) as f:
+            published = json.load(f)
+        cfg = TrainConfig.from_dict(dict(
+            published, results_folder=tmp, tensorboard_folder=os.path.join(tmp, "runs"),
+            experiment_name="chain10_bf16", train_iter=BF16_TRAIN_STEPS, bf16=True))
+        frames = chain10_dataset(TRAIN_FRAMES, seed=0)
+        topology = load_pdb(os.path.join(FOLDED_PDB_DIR, "CLN025-0-c-alpha.pdb")).topology
+        cut = (int(0.7 * TRAIN_FRAMES), int(0.8 * TRAIN_FRAMES))
+        sets = tuple(CGDataset(d, topology, Molecules.CHIGNOLIN)
+                     for d in (frames[:cut[0]], frames[cut[0]:cut[1]], frames[cut[1]:]))
+        g = GaussianDiffusion(model=get_model(cfg, 10), num_atoms=10,
+                              timesteps=cfg.diffusion_steps,
+                              norm_factor=float(sets[0].data.std()),
+                              loss_weights=cfg.loss_weights)
+        trainer = Trainer(g, sets, cfg.mol, cfg, use_tensorboard=False, evaluators=False,
+                          device=dev)
+        it = batch_iterator(sets[0].data, cfg.batch_size, seed=1)
+        gen = torch.Generator(dev).manual_seed(5)
+        reset_counts()
+        losses = []
+        for step in range(BF16_TRAIN_STEPS):
+            if step == BF16_TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(trainer._train_step(next(it), gen)["loss"])
+        torch.cuda.synchronize()
+        rate = (BF16_TRAIN_STEPS - BF16_TRAIN_WARMUP) / (time.perf_counter() - t0)
+        launched = add_counts()
+        losses = np.array([float(v) for v in losses])
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        f32 = [p.dtype == torch.float32 for m in (trainer.net, trainer.ema)
+               for p in m.parameters()]
+        moments = [s[k].dtype == torch.float32 for s in trainer.optimizer.state.values()
+                   for k in ("mu", "nu")]
+        ok = (trainer.net.dtype == torch.bfloat16 and bool(np.isfinite(losses).all())
+              and last < first and all(f32) and all(moments) and launched == (0, 0, 0, 0))
+        out["chain10_train_bf16"] = dict(steps=BF16_TRAIN_STEPS, steps_per_s_bf16=rate,
+                                         steps_per_s_f32_phase10=train_sps,
+                                         loss_first_20=first, loss_last_20=last)
+        log(f"phase13 (c) chignolin Trainer steps at chain10's published configuration, "
+            f"bf16=True, batch {cfg.batch_size}: steps={BF16_TRAIN_STEPS} "
+            f"steps_per_s={rate:.2f} over the last {BF16_TRAIN_STEPS - BF16_TRAIN_WARMUP} "
+            f"(phase 10, float32: {train_sps:.2f}) loss_first_20={first:.4f} "
+            f"loss_last_20={last:.4f} "
+            f"params_and_ema_float32={all(f32)} adam_moments_float32={all(moments)} "
+            f"launches_k1_fwd_bwd_k4={launched} ok={ok}")
+        if not ok:
+            fail("phase13 (c): the bf16 training run failed a check")
+        del trainer
+
+        # ------------------------------------------------------------ (d)
+        timer = PhaseTimer()
+        stage, train, sample = pc._segmented_langevin_stage, Trainer.train, Trainer.sample
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                with timer.phase(name(*args) if callable(name) else name):
+                    return fn(*args, **kwargs)
+            return run
+
+        pc._segmented_langevin_stage = timed(lambda ld, folder, name, *a: name, stage)
+        Trainer.train = timed("train", train)
+        Trainer.sample = timed("trainer.sample (final evaluation and the i.i.d. stage)", sample)
+        folder = os.path.join(tmp, "dipeptide")
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            res = pc.run_positive_control(results_folder=folder, bf16_compare=True,
+                                          evaluators=False, device=dev, **DIPEPTIDE_CONTROL)
+            wall = time.perf_counter() - t0
+        finally:
+            pc._segmented_langevin_stage, Trainer.train, Trainer.sample = stage, train, sample
+        launched = add_counts()
+        post = {f: np.load(os.path.join(folder, f)) for f in os.listdir(folder)
+                if f.startswith("post_")}
+        finite = (all(np.isfinite(a).all() for a in post.values())
+                  and all(np.isfinite(v) for k, v in res.items() if k != "results_folder"))
+        stages = sorted(post)
+        ok = (set(res) == set(DIPEPTIDE_CONTROL_KEYS) and finite and len(post) == 3
+              and any(f.startswith("post_langevin_bf16") for f in post)
+              and res["js_bf16_vs_f32"] < BAR_BF16_VS_F32
+              and res["pwd_js_bf16_vs_f32"] < BAR_BF16_PWD and launched == (0, 0, 0, 0))
+        out["dipeptide_control"] = dict(res, wall_s=wall, stages_s=dict(timer.totals))
+        log(f"phase13 (d) run_positive_control(bf16_compare=True) at the JAX package's CI tier "
+            f"{json.dumps(DIPEPTIDE_CONTROL)}: wall_s={wall:.1f} keys_equal_jax="
+            f"{set(res) == set(DIPEPTIDE_CONTROL_KEYS)} stages={stages} all_finite={finite} "
+            f"js_langevin_f32={res['js_langevin_f32']:.4f} "
+            f"js_langevin_bf16={res['js_langevin_bf16']:.4f} "
+            f"js_bf16_vs_f32={res['js_bf16_vs_f32']:.4f} (bar {BAR_BF16_VS_F32}) "
+            f"pwd_js_bf16_vs_f32={res['pwd_js_bf16_vs_f32']:.5f} (bar {BAR_BF16_PWD}) "
+            f"js_iid={res['js_iid']:.4f} js_floor={res['js_floor']:.4f} "
+            f"launches_k1_fwd_bwd_k4={launched} stage_wall_s={json.dumps(timer.totals)} ok={ok}")
+        if not ok:
+            fail("phase13 (d): the positive control's bf16 stage failed a check")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2233,6 +2539,11 @@ def main():
     for name, count in zip(("k1", "fwd", "bwd", "k4"), rank_launches):
         launches[name] += count
     mark("phase12")
+
+    # ---------------------------------------------------------- phase 13
+    bf16_numbers = bf16_phase(reset_counts, add_counts, dev,
+                              training["chain10_step"]["steps_per_s"])
+    mark("phase13")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -2244,6 +2555,7 @@ def main():
     log("training " + json.dumps(training))
     log("positive_control " + json.dumps(control))
     log("mesh " + json.dumps(mesh_numbers))
+    log("bf16 " + json.dumps(bf16_numbers))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

@@ -35,6 +35,7 @@ from twoforone_tpu.ops.geometry import center_zero as jcenter
 from twoforone_torch.cli import sample as tcli
 from twoforone_torch.core.diffusion import GaussianDiffusion
 from twoforone_torch.data.pdb import load_pdb
+from twoforone_torch.models.graph_transformer import GraphTransformer
 from twoforone_torch.utils.artifacts import trained_dir
 
 from test_torch_checkpoint import _leaves
@@ -279,7 +280,7 @@ def test_iid_samples_match_jax_cli(tmp_path, monkeypatch):
     for _ in range(2):
         key, sub = jax.random.split(key)
         batch_keys.append(sub)
-    make = GaussianDiffusion.make_fused_sample_fn
+    make = GaussianDiffusion.make_sample_fn  # the plain network's sampler (--fused never)
 
     def with_jax_noise(self, *a, **k):
         fn, keys = make(self, *a, **k), iter(batch_keys)
@@ -290,7 +291,7 @@ def test_iid_samples_match_jax_cli(tmp_path, monkeypatch):
         sample.kernel = fn.kernel
         return sample
 
-    monkeypatch.setattr(GaussianDiffusion, "make_fused_sample_fn", with_jax_noise)
+    monkeypatch.setattr(GaussianDiffusion, "make_sample_fn", with_jax_noise)
     path = _copy("chain10", tmp_path, "torch")
     got = tcli.main(["--model_path", path, *args, "--device", "cpu"])
     assert got.shape == ref.shape == (12, 10, 3)
@@ -323,14 +324,43 @@ def test_load_model_reads_a_reference_pt_checkpoint(tmp_path):
     assert out.shape == (3, 10, 3) and np.isfinite(out).all()
 
 
-def test_bf16_and_cuda_without_a_card_raise(tmp_path, monkeypatch):
-    """``--bf16`` is refused (the port computes in float32), and the default
-    ``--device cuda`` raises without CUDA instead of running on the host;
-    neither writes anything."""
+def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """The default ``--device cuda`` raises without CUDA instead of running
+    on the host, and writes nothing."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = _copy("chain10", tmp_path)
-    with pytest.raises(ValueError, match="bf16"):
-        tcli.main(["--model_path", path, "--bf16", "--device", "cpu"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.main(["--model_path", path])
     assert sorted(os.listdir(path)) == sorted(os.listdir(trained_dir("chain10")))
+
+
+@pytest.mark.parametrize("mode", ["iid", "langevin"])
+def test_bf16_runs_the_bf16_network(mode, tmp_path, monkeypatch):
+    """``--bf16`` on a copy of chain10 (``--fused auto``, which is the plain
+    network off the card): both CLIs hand the flag to the same places (the
+    LangevinDiffusion; the plain i.i.d. sampler), and a real run writes finite
+    samples that differ from the float32 run's with the same seed."""
+    args = (["--gen_mode", "iid", "--sample_steps", "4"] if mode == "iid" else
+            ["--gen_mode", "langevin", "--n_timesteps", "10", "--save_interval", "5",
+             "--sample_steps", "4"])
+    args += ["--fused", "auto", "--bf16"]
+    _, jax_seen, ours = _run_both("chain10", args, tmp_path / "recorded", monkeypatch)
+    assert ours["sampler_kernel"] == jax_seen["sampler_kernel"] == "xla"
+    if mode == "langevin":
+        assert ours["ld_kwargs"]["bf16"] is jax_seen["ld_kwargs"]["bf16"] is True
+        assert ours["ld"].force_fn.mode == "never"
+    wrapped = []
+    with_dtype = GraphTransformer.with_dtype
+    monkeypatch.setattr(GraphTransformer, "with_dtype",
+                        lambda self, dt: wrapped.append(dt) or with_dtype(self, dt))
+    argv = ["--num_samples_eval", "6", "--batch_size_gen", "6", "--parallel_sim", "4",
+            "--device", "cpu", *args]
+    out = {}
+    for bf16 in (False, True):
+        path = _copy("chain10", tmp_path, f"bf16_{bf16}")
+        out[bf16] = tcli.main(["--model_path", path, *(a for a in argv if bf16 or a != "--bf16")])
+    frames = 6 if mode == "iid" else 4 * 2
+    assert out[True].shape == out[False].shape == (frames, 10, 3)
+    assert np.isfinite(out[True]).all() and not np.array_equal(out[True], out[False])
+    # the i.i.d. sampler's network and, for Langevin, also the force's
+    assert wrapped == [torch.bfloat16] * (1 if mode == "iid" else 2)

@@ -62,9 +62,31 @@ def test_multihost_and_a_missing_card_raise(monkeypatch):
         tcli.main(["--mol", "chignolin", "--data_folder", "None"])
 
 
-def test_bf16_raises(data_folder):
-    with pytest.raises(ValueError, match="bf16"):
-        tcli.main(["--data_folder", data_folder, "--bf16", "true", "--device", "cpu"])
+def test_bf16_true_trains_a_bf16_model(data_folder, tmp_path):
+    """``--bf16 true``: a short run trains a bfloat16 network on float32
+    weights, as the JAX CLI's config does; the losses are finite and the
+    checkpoint and config.json say so."""
+    from twoforone_torch.utils.checkpoint import load_checkpoint
+
+    trainer = tcli.main([
+        "--mol", "alanine_dipeptide", "--data_folder", data_folder,
+        "--results_folder", str(tmp_path), "--tensorboard_folder", str(tmp_path / "runs"),
+        "--experiment_name", "bf16", "--hidden_features_gnn", "16", "--num_layers_gnn", "1",
+        "--use_intrinsic_coords", "true", "--use_abs_coords", "false",
+        "--use_distances", "false", "--batch_size", "16", "--train_iter", "4",
+        "--eval_interval", "4", "--num_samples", "4", "--num_samples_final_eval", "4",
+        "--iterations_on_val", "0.1", "--loss_weights", "higheruntil_10",
+        "--ala2_train_cap", "500", "--diffusion_steps", "100", "--bf16", "true",
+        "--device", "cpu"])
+    assert trainer.config.bf16 and trainer.step == 4
+    assert trainer.net.dtype == trainer.ema.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.net.parameters())
+    assert math.isfinite(trainer.best_val_loss)
+    state = load_checkpoint(trainer.results_folder, "last")
+    leaves = [v for layer in state["params"].values() for v in layer.values()]
+    assert all(np.asarray(v).dtype == np.float32 for v in leaves if not isinstance(v, dict))
+    with open(os.path.join(trainer.results_folder, "config.json")) as f:
+        assert json.load(f)["bf16"] is True
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ import sys
 import types
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -81,14 +82,20 @@ def test_get_model_builds_the_jax_architecture(name):
 @pytest.mark.parametrize("flag,bad_value", UNPLUMBED + [("bf16", True)])
 def test_get_model_refuses_what_it_cannot_build(flag, bad_value):
     """A reference flag that never reaches the network is refused by both
-    packages; ``bf16`` is refused by the port, which computes in float32."""
+    packages; ``bf16`` is built by both: a bfloat16 network on float32
+    parameters."""
     base = dict(hidden_features_gnn=16, num_layers_gnn=1, use_intrinsic_coords=True,
                 use_abs_coords=False, use_distances=False, conservative=True)
-    get_model(tconfig.TrainConfig(**base), 5)
+    assert get_model(tconfig.TrainConfig(**base), 5).dtype is None
     cfg = tconfig.TrainConfig(**base, **{flag: bad_value})
-    with pytest.raises(ValueError, match=flag):
-        get_model(cfg, 5)
-    if flag != "bf16":
+    if flag == "bf16":
+        model = get_model(cfg, 5)
+        assert model.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert jget_model(jconfig.TrainConfig(**base, bf16=True), 5).dtype == jnp.bfloat16
+    else:
+        with pytest.raises(ValueError, match=flag):
+            get_model(cfg, 5)
         with pytest.raises(ValueError, match=flag):
             jget_model(jconfig.TrainConfig(**base, **{flag: bad_value}), 5)
     with pytest.raises(ValueError, match="not implemented"):

@@ -139,10 +139,37 @@ def test_bar_predicates_agree_with_jax_on_staged_results(name):
         assert tpc.ergodicity_bars_ok(case) == jpc.ergodicity_bars_ok(case), case
 
 
-def test_bf16_compare_raises_before_training(tmp_path):
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tpc.run_positive_control(bf16_compare=True, results_folder=str(tmp_path), device="cpu")
-    assert not os.listdir(tmp_path)
+def test_bf16_compare_runs_the_bf16_stage(tmp_path, monkeypatch):
+    """``bf16_compare=False`` leaves out the bfloat16 Langevin stage and its
+    three keys; ``True`` (the default, as in the JAX package) runs it in
+    segments as the float32 stage runs, through the bfloat16 network, from
+    the same initial states and seed: a trajectory of the float32 stage's
+    shape that is not its copy. Without the trainer's evaluators no
+    Ramachandran map is drawn."""
+    import torch
+
+    from twoforone_torch.models.graph_transformer import GraphTransformer
+
+    tiny = dict(TINY_DIPEPTIDE, train_iter=10, langevin_steps=100, evaluators=False)
+    off = tpc.run_positive_control(results_folder=str(tmp_path / "off"), bf16_compare=False,
+                                   **tiny)
+    assert set(off) == _jax_result_keys("run_positive_control", skip_if="bf16_compare")
+    wrapped = []
+    with_dtype = GraphTransformer.with_dtype
+    monkeypatch.setattr(GraphTransformer, "with_dtype",
+                        lambda self, dt: wrapped.append(dt) or with_dtype(self, dt))
+    calls = _counting(monkeypatch)
+    folder = str(tmp_path / "on")
+    on = tpc.run_positive_control(results_folder=folder, **tiny)
+    assert set(on) - set(off) == {"js_langevin_bf16", "js_bf16_vs_f32", "pwd_js_bf16_vs_f32"}
+    assert wrapped == [torch.bfloat16] and calls["segmented"] == 2
+    suffix = "_t4_dt1_s100.npy"
+    f32 = np.load(os.path.join(folder, "post_langevin_f32" + suffix))
+    bf16 = np.load(os.path.join(folder, "post_langevin_bf16" + suffix))
+    assert bf16.shape == f32.shape == (8 * 2, 5, 3) and np.isfinite(bf16).all()
+    assert not np.array_equal(bf16, f32)
+    assert np.isfinite(on["js_bf16_vs_f32"]) and np.isfinite(on["pwd_js_bf16_vs_f32"])
+    assert not [f for _, _, fs in os.walk(folder) for f in fs if f.startswith("ramachandran")]
 
 
 @pytest.mark.parametrize("run", ["run_chain_control", "run_positive_control"])
@@ -210,8 +237,7 @@ def test_tiny_positive_control_keys_floor_and_resume(tmp_path, monkeypatch):
     calls = _counting(monkeypatch)
     folder = str(tmp_path / "ala")
     res = tpc.run_positive_control(results_folder=folder, **TINY_DIPEPTIDE)
-    assert set(res) == _jax_result_keys("run_positive_control", skip_if="bf16_compare")
-    assert not {"js_langevin_bf16", "js_bf16_vs_f32", "pwd_js_bf16_vs_f32"} & set(res)
+    assert set(res) == _jax_result_keys("run_positive_control")
     assert all(np.isfinite(v) for k, v in res.items() if k != "results_folder"), res
     ref = jsyn.bimodal_dipeptide_dataset(256, seed=1)
     floor = jsyn.bimodal_dipeptide_dataset(256, seed=2)
@@ -220,16 +246,19 @@ def test_tiny_positive_control_keys_floor_and_resume(tmp_path, monkeypatch):
     # the trainer's evaluators drew the Ramachandran map
     plots = [f for _, _, fs in os.walk(folder) for f in fs if f.startswith("ramachandran")]
     assert plots
-    # the evaluation at the last step, the final evaluation, the i.i.d. stage
-    assert calls == {"sample": 3, "train_step": 40, "segmented": 1}
+    # the evaluation at the last step, the final evaluation, the i.i.d.
+    # stage; the float32 and bfloat16 Langevin stages
+    assert calls == {"sample": 3, "train_step": 40, "segmented": 2}
     again = tpc.run_positive_control(results_folder=folder, resume=True, **TINY_DIPEPTIDE)
     assert again == res
-    assert calls == {"sample": 4, "train_step": 40, "segmented": 1}
+    assert calls == {"sample": 4, "train_step": 40, "segmented": 2}
 
 
 def test_chip_smoke_holds_the_jax_key_set():
-    """The card's run of run_chain_control is held to a key set written in
-    chip_smoke.py (the card has no JAX package): it is the JAX function's."""
+    """The card's runs of run_chain_control and run_positive_control are
+    held to key sets written in chip_smoke.py (the card has no JAX package):
+    they are the JAX functions'."""
     import chip_smoke
 
     assert set(chip_smoke.CHAIN_CONTROL_KEYS) == _jax_result_keys("run_chain_control")
+    assert set(chip_smoke.DIPEPTIDE_CONTROL_KEYS) == _jax_result_keys("run_positive_control")

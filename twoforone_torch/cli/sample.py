@@ -99,8 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kb", type=str, default="consistent", help="consistent, kcal")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 score-net compute: not in the port, which "
-                        "computes in float32; the flag raises")
+                   help="bfloat16 score-net compute in the plain network: the Langevin "
+                        "force where its path is the plain network, the i.i.d. chain on "
+                        "--fused never; the fused kernels compute in float32")
     p.add_argument("--fused", type=str, default="never",
                    choices=["never", "auto", "cl", "clx", "always"],
                    help="force path: never | auto | cl | clx | always (cl = "
@@ -170,8 +171,6 @@ def load_model(model_path: str, checkpoint: str, data_folder=None, device="cuda"
 
 def main(argv=None):
     samp_args = build_parser().parse_args(argv)
-    if samp_args.bf16:
-        raise ValueError("--bf16: the PyTorch port computes in float32 only")
     device = resolve_device(samp_args.device)
     # A process group when torchrun's environment configures one.
     mesh = get_mesh(device) if initialize_distributed(device=device) else None
@@ -204,13 +203,23 @@ def main(argv=None):
     if mesh is not None:
         print(f"Sharding over {mesh.size} devices (batch {batch}, parallel_sim {sim_padded})")
     generator = torch.Generator(device=device).manual_seed(samp_args.seed)
-    kernel = "xla"
-    if samp_args.fused != "never" and gd.model.conservative:
-        kernel = SAMPLE_KERNEL[samp_args.fused]
-    sample_fn = gd.make_fused_sample_fn(
-        ema_params, batch, kernel=kernel, sample_steps=samp_args.sample_steps,
-        eta=samp_args.ddim_eta, solver=samp_args.solver, device=device, mesh=mesh,
-    )
+    # "auto" off the card is the plain network, as the JAX CLI has it on a
+    # CPU host; there --bf16 applies.
+    fused_mode = samp_args.fused
+    if fused_mode == "auto" and device.type != "cuda":
+        fused_mode = "never"
+    if fused_mode != "never" and gd.model.conservative:
+        # The fused reverse chain, which takes no --bf16 (as in the JAX CLI).
+        sample_fn = gd.make_fused_sample_fn(
+            ema_params, batch, kernel=SAMPLE_KERNEL[fused_mode],
+            sample_steps=samp_args.sample_steps, eta=samp_args.ddim_eta,
+            solver=samp_args.solver, device=device, mesh=mesh,
+        )
+    else:
+        sample_fn = gd.make_sample_fn(
+            ema_params, batch, sample_steps=samp_args.sample_steps, eta=samp_args.ddim_eta,
+            solver=samp_args.solver, bf16=samp_args.bf16, device=device, mesh=mesh,
+        )
 
     def sample_batch(batch_size, gen):
         return sample_fn(gen)
@@ -255,6 +264,7 @@ def main(argv=None):
             kb=samp_args.kb,
             random_seed=samp_args.seed,
             fused=samp_args.fused,
+            bf16=samp_args.bf16,
             device=device,
             mesh=mesh,
         )

@@ -99,9 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss_weights", type=str, default=d.loss_weights,
                    help="ones, score_matching, higheruntil_30, higheruntil_100, lower_bound_1000")
     p.add_argument("--save_all_checkpoints", type=_bool, default=d.save_all_checkpoints)
-    p.add_argument("--bf16", type=_bool, default=False,
-                   help="bfloat16 score-net compute: not in the port, which computes in "
-                        "float32; true raises")
+    p.add_argument("--bf16", type=_bool, default=False, help="bfloat16 score-net compute")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ala2_train_cap", type=int, default=500000)
     p.add_argument("--multihost", type=_bool, default=False,

@@ -26,9 +26,12 @@ What differs from the JAX module:
   JAX package gets this from partitionable ``jax.random``); they return the
   rank's rows, and the sampling closures gather them.
 
-Not ported: bfloat16 score evaluation and ``make_sample_fn`` (``jit`` has no
-counterpart). ``init_params`` is
-:func:`twoforone_torch.models.graph_transformer.init_params`.
+``bf16`` (``score_fn``, ``sample``, ``make_sample_fn``) runs the plain
+network in bfloat16 on its float32 weights (``GraphTransformer.with_dtype``);
+the chain state, the buffers and the coefficient arithmetic stay float32. The
+fused paths take no ``bf16``, as in the JAX package: their kernels compute in
+float32. ``make_sample_fn`` binds the weights once where the JAX one jits.
+``init_params`` is :func:`twoforone_torch.models.graph_transformer.init_params`.
 """
 
 from __future__ import annotations
@@ -394,15 +397,19 @@ class GaussianDiffusion:
         return cache[device]
 
     # -- model plumbing ------------------------------------------------------
-    def score_fn(self, params, device="cuda") -> ScoreFn:
+    def score_fn(self, params, device="cuda", bf16: bool = False) -> ScoreFn:
         """Score closure ``(x, t_norm) -> eps_hat`` of the plain network with
-        ``params`` loaded, on ``device``."""
+        ``params`` loaded, on ``device``. ``bf16`` computes the network in
+        bfloat16 (its weights stay float32; a model built in bfloat16 stays
+        so either way, as in the JAX package)."""
         from twoforone_torch.models.graph_transformer import score_forward
         from twoforone_torch.utils.convert import params_from_jax
 
         net = copy.deepcopy(self.model).to(resolve_device(device))
         net.load_state_dict(params_from_jax(params))
         net.eval()
+        if bf16:
+            net = net.with_dtype(torch.bfloat16)
         return lambda x, t_norm: score_forward(net, x, t_norm)
 
     # -- training loss -------------------------------------------------------
@@ -467,15 +474,25 @@ class GaussianDiffusion:
 
     def sample(self, params, batch_size: int, generator=None,
                sample_steps: Optional[int] = None, eta: float = 0.0, solver: str = "ddim",
-               noise=None, device="cuda", mesh=None):
+               noise=None, device="cuda", mesh=None, bf16: bool = False):
         """Draw i.i.d. samples in data units through the plain network:
         (batch, N, 3) on ``device``. ``generator`` must live on that device.
         ``mesh``: each rank computes its rows of the batch and every rank
-        gets all of it, equal to the unsharded samples."""
-        return self.make_fused_sample_fn(
-            params, batch_size, kernel="xla", sample_steps=sample_steps, eta=eta,
-            solver=solver, device=device, mesh=mesh,
+        gets all of it, equal to the unsharded samples. ``bf16`` runs the
+        network in bfloat16 (the chain state stays float32)."""
+        return self.make_sample_fn(
+            params, batch_size, sample_steps=sample_steps, eta=eta, solver=solver,
+            bf16=bf16, device=device, mesh=mesh,
         )(generator, noise=noise)
+
+    def make_sample_fn(self, params, batch_size: int, sample_steps: Optional[int] = None,
+                       eta: float = 0.0, solver: str = "ddim", bf16: bool = False,
+                       device="cuda", mesh=None):
+        """Sampling closure of the plain network with the weights bound once:
+        ``sample(generator=None, noise=None) -> (batch, N, 3)``, as
+        :meth:`sample` draws them (``bf16`` likewise)."""
+        return self._sampler(params, batch_size, "xla", sample_steps, eta, solver, device,
+                             mesh, bf16)
 
     def resolve_sample_kernel(self, kernel: str, batch_size: int, device) -> str:
         """Resolve ``kernel="auto"`` to ``"cl"``, ``"clx"``, ``"xla"`` or
@@ -519,6 +536,11 @@ class GaussianDiffusion:
         caller's and the rank, as the JAX package folds the device index
         into the key. Their samples are i.i.d. either way.
         """
+        return self._sampler(params, batch_size, kernel, sample_steps, eta, solver, device,
+                             mesh, bf16=False)
+
+    def _sampler(self, params, batch_size, kernel, sample_steps, eta, solver, device, mesh,
+                 bf16):
         device = entry_device(device, mesh)
         m = self.model
         n_ranks = mesh_size(mesh)
@@ -529,7 +551,7 @@ class GaussianDiffusion:
             return t_norm if isinstance(t_norm, float) else t_norm[0]
 
         if kernel == "xla":
-            score_fn = self.score_fn(params, device)
+            score_fn = self.score_fn(params, device, bf16=bf16)
         elif kernel == "clx":
             from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
 

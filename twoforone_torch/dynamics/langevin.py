@@ -48,7 +48,7 @@ def resolve_fused_mode(model, fused: str, n_chains, device) -> str:
 
 def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
                             fused: str = "never", n_chains: Optional[int] = None,
-                            device="cuda", mesh=None):
+                            device="cuda", mesh=None, bf16: bool = False):
     """Build ``x -> (potential, forces)`` from a diffusion model at noise level t.
 
     ``params`` is the flax parameter tree (nested dict of numpy arrays, see
@@ -68,6 +68,11 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
     ``fused_block`` is a TPU tiling argument (chains per grid step, with the
     chains padded to a multiple of it) and is left out: the kernel takes any
     number of chains.
+
+    ``bf16`` runs the plain network (``"never"``) in bfloat16 on its float32
+    weights. The kernels of ``"cl"``, ``"clx"`` and ``"always"`` compute in
+    float32 and ignore it, as the JAX package's fused paths do: the same
+    bits as ``bf16=False``. The ``"auto"`` gate reads the float32 model.
     """
     device = entry_device(device, mesh)
     buf = diffusion.buffers
@@ -91,7 +96,7 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
 
         eps_fn = make_clx_force_fn(model, params, t_norm, device)
     elif mode == "never":
-        score_fn = diffusion.score_fn(params, device)
+        score_fn = diffusion.score_fn(params, device, bf16=bf16)
 
         def eps_fn(x):
             tt = torch.full((x.shape[0],), t_norm, dtype=torch.float32, device=x.device)
@@ -120,7 +125,9 @@ class LangevinDiffusion:
     ``device``, and rescales the saved trajectory back to data units.
     ``fused`` defaults to the plain network (``"never"``), as in the JAX
     package, so the same call runs the same path in both; ``"auto"`` and the
-    kernels are asked for explicitly.
+    kernels are asked for explicitly. ``bf16`` (default ``False``, as in the
+    JAX package) runs the plain network's force in bfloat16; the fused paths
+    ignore it (:func:`make_diffusion_force_fn`).
 
     ``mesh`` shards the chains over its ranks (their count must be a
     multiple of its size); :meth:`sample` returns all chains on every rank.
@@ -144,6 +151,7 @@ class LangevinDiffusion:
         steps_per_chunk: Optional[int] = None,
         log: bool = True,
         fused: str = "never",
+        bf16: bool = False,
         restraint_k: float = 0.0,
         max_force: Optional[float] = None,
         dt_scale: float = 1.0,
@@ -165,7 +173,7 @@ class LangevinDiffusion:
 
         self.force_fn = make_diffusion_force_fn(
             diffusion, params, t, kbt_inv=self.kb_inv / temp_data,
-            fused=fused, n_chains=init_sample.shape[0], device=device, mesh=mesh,
+            fused=fused, n_chains=init_sample.shape[0], device=device, mesh=mesh, bf16=bf16,
         )
 
         if friction is None:

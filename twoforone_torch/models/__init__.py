@@ -1,5 +1,7 @@
 """Score-network registry (port of ``twoforone_tpu/models/__init__.py``)."""
 
+import torch
+
 from twoforone_torch.models.graph_transformer import GraphTransformer
 
 # Reference flags that never reach the GraphTransformer constructor. The
@@ -21,7 +23,8 @@ def get_model(config, num_beads: int) -> GraphTransformer:
 
     ``config`` is anything with the reference flag names as attributes
     (TrainConfig, argparse Namespace, or a legacy args.pickle namespace).
-    ``bf16=True`` raises: the port computes in float32.
+    ``bf16=True`` builds a network that computes in bfloat16 on float32
+    parameters, as the JAX package's does.
     """
     backbone = getattr(config, "backbone_network", "graph-transformer")
     if backbone != "graph-transformer":
@@ -39,9 +42,6 @@ def get_model(config, num_beads: int) -> GraphTransformer:
             "different model than asked. Use the defaults "
             f"{ {k: _UNPLUMBED_FLAG_DEFAULTS[k] for k in bad} } instead."
         )
-    if getattr(config, "bf16", False):
-        raise ValueError("bf16=True: the PyTorch port computes the score network in float32 "
-                         "only")
     return GraphTransformer(
         num_beads=num_beads,
         hidden_nf=config.hidden_features_gnn,
@@ -50,4 +50,5 @@ def get_model(config, num_beads: int) -> GraphTransformer:
         use_abs_coords=config.use_abs_coords,
         use_distances=config.use_distances,
         conservative=config.conservative,
+        dtype=torch.bfloat16 if getattr(config, "bf16", False) else None,
     )

@@ -13,6 +13,21 @@ Behavioral contract, the same as the JAX module:
   ``-torch.autograd.grad`` of the summed energy with respect to the *centred*
   coordinates (:func:`score_forward`).
 
+Compute dtype (``dtype``), with flax's semantics: ``None`` (the default)
+computes in the dtype of the parameters and the input, as the float32
+network always has; a dtype such as ``torch.bfloat16`` casts at the points
+where the JAX module casts. The parameters stay float32. Every dense layer
+casts its input, weight and bias to ``dtype`` and returns ``dtype``
+(``nn.Dense(dtype=...)``); the coordinates are cast at the model input, the
+one-hot and time features are made in ``dtype``, the edge-embedding weights
+and the folded edge biases are cast; LayerNorm carries no dtype, as in the
+JAX module, so it takes its statistics in float32 and returns float32
+(flax promotes a bfloat16 input with float32 scale and bias); the energy
+comes back in float32. :meth:`GraphTransformer.with_dtype` gives the same
+network at another dtype on the same parameters (flax's
+``model.clone(dtype=...)``). ``torch.autocast`` is not used: its op lists
+keep LayerNorm and softmax in float32 and cast at other points than flax.
+
 Parameter names follow the flax parameter tree of the JAX module (module
 path joined by dots), with torch's conventions for the leaves: ``kernel``
 becomes ``weight`` stored ``(out, in)``, LayerNorm ``scale`` becomes
@@ -22,6 +37,10 @@ maps a flax tree onto these names.
 """
 
 from __future__ import annotations
+
+import contextlib
+import copy
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,17 +52,33 @@ from twoforone_torch.ops.attention import (
     geometric_edge_attention_packed,
 )
 from twoforone_torch.ops.geometry import center_zero
+from twoforone_torch.utils.device import float32_products
+
+
+def _cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return t if dtype is None else t.to(dtype)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``layer`` applied as flax's ``nn.Dense(dtype=dtype)``: input, weight and
+    bias cast to ``dtype``, the product and its output in ``dtype``; ``None``
+    computes in the operands' own dtype."""
+    if dtype is None:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class GatedResidual(nn.Module):
     """Sigmoid-gated residual merge."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Linear(3 * dim, 1, bias=False)
 
     def forward(self, x, res):
-        gate = torch.sigmoid(self.proj(torch.cat([x, res, x - res], dim=-1)))
+        gate = torch.sigmoid(dense(self.proj, torch.cat([x, res, x - res], dim=-1), self.dtype))
         return x * gate + res * (1.0 - gate)
 
 
@@ -51,10 +86,12 @@ class Attention(nn.Module):
     """Edge-biased attention over beads, geometric (production) or general
     (explicit edge tensor) path; identical math."""
 
-    def __init__(self, dim: int, edge_dim: int, heads: int = 8, dim_head: int = 64):
+    def __init__(self, dim: int, edge_dim: int, heads: int = 8, dim_head: int = 64,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
+        self.dtype = dtype
         self.to_q = nn.Linear(dim, inner)
         self.to_kv = nn.Linear(dim, 2 * inner)
         self.edges_to_kv = nn.Linear(edge_dim, inner)
@@ -62,40 +99,42 @@ class Attention(nn.Module):
 
     def forward(self, nodes, edges=None, geom=None):
         b, n, _ = nodes.shape
-        h, dh = self.heads, self.dim_head
-        q = self.to_q(nodes).view(b, n, h, dh)
-        k, v = self.to_kv(nodes).chunk(2, dim=-1)
+        h, dh, dt = self.heads, self.dim_head, self.dtype
+        q = dense(self.to_q, nodes, dt).view(b, n, h, dh)
+        k, v = dense(self.to_kv, nodes, dt).chunk(2, dim=-1)
         k = k.reshape(b, n, h, dh)
         v = v.reshape(b, n, h, dh)
-        w_e = self.edges_to_kv.weight.t()  # (De, inner)
-        b_e = self.edges_to_kv.bias
+        w_e = _cast(self.edges_to_kv.weight.t(), dt)  # (De, inner)
+        b_e = _cast(self.edges_to_kv.bias, dt)
         scale = dh**-0.5
         if geom is not None:
             x, w_emb, b_emb, has_diff, has_dist = geom
             # Fold edge_embedding and edges_to_kv into one affine map of the
             # raw channels: K_comb (C, H, dh), b_comb (H, dh).
-            k_comb = (w_emb @ w_e).view(-1, h, dh)
-            b_comb = (b_emb @ w_e + b_e).view(h, dh)
+            k_comb = (_cast(w_emb, dt) @ w_e).view(-1, h, dh)
+            b_comb = (_cast(b_emb, dt) @ w_e + b_e).view(h, dh)
             k_diff = k_comb[:3] if has_diff else None
             k_dist = k_comb[3 if has_diff else 0] if has_dist else None
             out = geometric_edge_attention_packed(
-                q, k, v, x, k_diff, k_dist, b_comb, scale
+                q, k, v, _cast(x, dt), k_diff, k_dist, b_comb, scale
             )
         else:
             out = edge_biased_attention(
                 q, k, v, edges, w_e.view(-1, h, dh), b_e.view(h, dh), scale
             )
-        return self.to_out(out.reshape(b, n, h * dh))
+        return dense(self.to_out, out.reshape(b, n, h * dh), dt)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, dim * mult)
         self.fc2 = nn.Linear(dim * mult, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        x = F.gelu(dense(self.fc1, x, self.dtype), approximate="none")
+        return dense(self.fc2, x, self.dtype)
 
 
 class GraphTransformer(nn.Module):
@@ -103,7 +142,8 @@ class GraphTransformer(nn.Module):
 
     ``forward`` expects coordinates that are already mean-centred and returns
     per-node energies (B, N, 1) in conservative mode (with
-    ``return_energy=True``) or predicted noise (B, N, 3) otherwise.
+    ``return_energy=True``) or predicted noise (B, N, 3) otherwise. ``dtype``
+    is the compute dtype (see the module docstring).
     """
 
     def __init__(
@@ -118,8 +158,10 @@ class GraphTransformer(nn.Module):
         heads: int = 8,
         dim_head: int = 64,
         use_geometric_edges: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.num_beads = num_beads
         self.hidden_nf = hidden_nf
         self.n_layers = n_layers
@@ -139,12 +181,12 @@ class GraphTransformer(nn.Module):
         for i in range(n_layers):
             self.add_module(f"layers_{i}_attn_norm", nn.LayerNorm(hidden_nf, eps=1e-5))
             self.add_module(
-                f"layers_{i}_attn", Attention(hidden_nf, hidden_nf, heads, dim_head)
+                f"layers_{i}_attn", Attention(hidden_nf, hidden_nf, heads, dim_head, dtype)
             )
-            self.add_module(f"layers_{i}_attn_res", GatedResidual(hidden_nf))
+            self.add_module(f"layers_{i}_attn_res", GatedResidual(hidden_nf, dtype))
             self.add_module(f"layers_{i}_ff_norm", nn.LayerNorm(hidden_nf, eps=1e-5))
-            self.add_module(f"layers_{i}_ff", FeedForward(hidden_nf))
-            self.add_module(f"layers_{i}_ff_res", GatedResidual(hidden_nf))
+            self.add_module(f"layers_{i}_ff", FeedForward(hidden_nf, dtype=dtype))
+            self.add_module(f"layers_{i}_ff_res", GatedResidual(hidden_nf, dtype))
         self.node_decoder = nn.Linear(hidden_nf, 1 if conservative else 3)
 
     @property
@@ -154,6 +196,20 @@ class GraphTransformer(nn.Module):
             + self.use_distances
             + int(not self.use_intrinsic_coords and not self.use_distances)
         )
+
+    def with_dtype(self, dtype: Optional[torch.dtype]) -> "GraphTransformer":
+        """This network computing in ``dtype``, on the same parameter tensors
+        (no copy; flax's ``model.clone(dtype=...)``). The modules are shallow
+        copies, so a weight loaded into either is seen by both."""
+
+        def retyped(module):
+            view = copy.copy(module)
+            view._modules = {name: retyped(sub) for name, sub in module._modules.items()}
+            if hasattr(module, "dtype"):
+                view.dtype = dtype
+            return view
+
+        return retyped(self)
 
     @property
     def is_production_edge_config(self) -> bool:
@@ -183,13 +239,15 @@ class GraphTransformer(nn.Module):
         b, n, _ = x.shape
         if n != self.num_beads:
             raise ValueError(f"expected {self.num_beads} beads, got {n}")
+        dt = self.dtype
+        x = _cast(x, dt)
         onehot = torch.eye(n, dtype=x.dtype, device=x.device).expand(b, n, n)
         t_feat = t.to(x.dtype).reshape(b, 1, 1).expand(b, n, 1)
         if self.use_abs_coords:
             node_in = torch.cat([onehot, x, t_feat], dim=-1)
         else:
             node_in = torch.cat([onehot, t_feat], dim=-1)
-        nodes = self.node_embedding(node_in)
+        nodes = dense(self.node_embedding, node_in, dt)
 
         w_emb = self.edge_embedding.weight.t()  # (edge_in_dim, C)
         b_emb = self.edge_embedding.bias
@@ -198,23 +256,25 @@ class GraphTransformer(nn.Module):
             edges = None
         else:
             geom = None
-            edges = self.edge_features(x) @ w_emb + b_emb
+            edges = self.edge_features(x) @ _cast(w_emb, dt) + _cast(b_emb, dt)
 
+        # LayerNorm has no dtype: at least float32 in, statistics and output.
+        at_least_f32 = torch.promote_types(x.dtype, torch.float32)
         for i in range(self.n_layers):
-            attn_in = getattr(self, f"layers_{i}_attn_norm")(nodes)
+            attn_in = getattr(self, f"layers_{i}_attn_norm")(nodes.to(at_least_f32))
             attn_out = getattr(self, f"layers_{i}_attn")(attn_in, edges=edges, geom=geom)
             nodes = getattr(self, f"layers_{i}_attn_res")(attn_out, nodes)
-            ff_in = getattr(self, f"layers_{i}_ff_norm")(nodes)
+            ff_in = getattr(self, f"layers_{i}_ff_norm")(nodes.to(at_least_f32))
             ff_out = getattr(self, f"layers_{i}_ff")(ff_in)
             nodes = getattr(self, f"layers_{i}_ff_res")(ff_out, nodes)
 
-        out = self.node_decoder(nodes)
+        out = dense(self.node_decoder, nodes, dt)
         if self.conservative and not return_energy:
             raise ValueError(
                 "conservative GraphTransformer outputs energies; use score_forward "
                 "to obtain forces via autograd"
             )
-        return out
+        return out if dt is None else out.float()
 
 
 def init_params(model: GraphTransformer, seed: int) -> dict:
@@ -284,7 +344,17 @@ def score_forward(model: GraphTransformer, x: torch.Tensor, t: torch.Tensor,
     dropped (sampling and dynamics). ``create_graph=True`` keeps x attached
     and builds the graph of dE/dx, so that a loss on the force can be
     differentiated with respect to the weights (training).
+
+    A network with a compute dtype runs under
+    :func:`~twoforone_torch.utils.device.float32_products`, so that cuBLAS
+    sums its bfloat16 products in float32; the float32 centred coordinates
+    are differentiated through the cast at the model input.
     """
+    with contextlib.nullcontext() if model.dtype is None else float32_products():
+        return _score_forward(model, x, t, return_energy, create_graph)
+
+
+def _score_forward(model, x, t, return_energy, create_graph):
     xc = center_zero(x)
     if not model.conservative:
         return model(xc, t)

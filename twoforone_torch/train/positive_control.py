@@ -26,11 +26,8 @@ membership in the early reverse chain, and caps the i.i.d. dihedral JS; the
 Langevin force at low t is trained at the same rate either way.
 
 Differences from the JAX package: every run takes ``device`` (default
-``"cuda"``, raising without CUDA), and ``run_positive_control`` defaults
-``bf16_compare`` to ``False`` and raises on ``True``, because the port's
-``LangevinDiffusion`` has no bfloat16 score network; its result then lacks
-the three bf16 keys (``dipeptide_bars_ok`` reads ``js_bf16_vs_f32`` with a
-default, so its bars are unchanged).
+``"cuda"``, raising without CUDA), and ``run_positive_control`` takes
+``evaluators`` (see there).
 """
 
 from __future__ import annotations
@@ -434,7 +431,8 @@ def dipeptide_bars_ok(results: dict) -> bool:
         and results["js_iid"] <= results["js_floor"] + 0.02
         and results["js_langevin_f32"] <= 0.05
         and results["pwd_js_iid"] <= 0.01
-        # Held when the bf16 comparison ran (the JAX package's runs).
+        # The bf16 force must be indistinguishable from f32 at the level of
+        # the distribution, when the comparison ran.
         and results.get("js_bf16_vs_f32", 0.0) <= 0.02
         and ergodicity_bars_ok(results)
     )
@@ -454,7 +452,7 @@ def run_positive_control(
     t_noise: int = 15,
     seed: int = 0,
     results_folder: str = None,
-    bf16_compare: bool = False,
+    bf16_compare: bool = True,
     phi_components=None,
     psi_components=None,
     loss_weights: str = "ones",
@@ -466,21 +464,22 @@ def run_positive_control(
     langevin_dt_scale: float = 1.0,
     log_langevin: bool = False,
     device="cuda",
+    evaluators: bool = True,
 ) -> dict:
     """The dipeptide-analogue control (5 beads, phi/psi from von Mises
     mixtures); returns the metric dict.
 
-    ``bf16_compare`` defaults to ``False`` here (``True`` in the JAX
-    package) and ``True`` raises: the port has no bfloat16 score network.
-    The trainer's evaluators draw the Ramachandran map, so the run needs
-    matplotlib. ``eval_interval`` / ``resume`` give the crash resilience of
-    :func:`run_chain_control`.
+    ``bf16_compare`` runs a second Langevin stage with the force of the
+    bfloat16 network (``langevin_bf16...``, in segments as the float32 one)
+    and scores it against the reference and against the float32 stage
+    (``js_langevin_bf16``, ``js_bf16_vs_f32``, ``pwd_js_bf16_vs_f32``).
+    ``eval_interval`` / ``resume`` give the crash resilience of
+    :func:`run_chain_control`. ``evaluators`` builds the trainer's
+    per-molecule evaluators, whose scores go to ``results-*.json`` and not
+    into the result, and which draw the Ramachandran map (matplotlib);
+    ``False`` leaves them out.
     """
     device = resolve_device(device)
-    if bf16_compare:
-        raise NotImplementedError(
-            "bf16_compare: the port's LangevinDiffusion has no bfloat16 score network"
-        )
     mix = dict(
         phi_components=phi_components or synthetic.PHI_COMPONENTS,
         psi_components=psi_components or synthetic.PSI_COMPONENTS,
@@ -532,7 +531,7 @@ def run_positive_control(
         seed=seed,
     )
     trainer = Trainer(gd, (trainset, valset, testset), "alanine", cfg, use_tensorboard=False,
-                      device=device)
+                      evaluators=evaluators, device=device)
     trainer.train()
     trainer.save("final")
 
@@ -557,18 +556,22 @@ def run_positive_control(
     # model's own i.i.d. samples, so that the metric reflects the model.
     rng = np.random.default_rng(seed + 3)
     init = np.asarray(iid)[rng.integers(0, len(iid), langevin_chains)]
-    sim = LangevinDiffusion(
-        gd, trainer.ema_params(), init,
-        n_timesteps=langevin_steps,
-        save_interval=langevin_save_interval,
-        t=t_noise, temp_data=300, temp_sim=300,
-        dt=None, masses=[12.8] * 5, friction=1.0,
-        kb="consistent", random_seed=seed, log=log_langevin,
-        dt_scale=langevin_dt_scale, device=device,
-    )
+    ema_params = trainer.ema_params()
+
+    def make_sim(bf16):
+        return LangevinDiffusion(
+            gd, ema_params, init,
+            n_timesteps=langevin_steps,
+            save_interval=langevin_save_interval,
+            t=t_noise, temp_data=300, temp_sim=300,
+            dt=None, masses=[12.8] * 5, friction=1.0,
+            kb="consistent", random_seed=seed, log=log_langevin,
+            bf16=bf16, dt_scale=langevin_dt_scale, device=device,
+        )
+
     stage_suffix = f"_t{t_noise}_dt{langevin_dt_scale:g}_s{langevin_steps}"
-    traj_f32 = _segmented_langevin_stage(sim, results_folder, f"langevin_f32{stage_suffix}",
-                                         resume)
+    traj_f32 = _segmented_langevin_stage(make_sim(False), results_folder,
+                                         f"langevin_f32{stage_suffix}", resume)
     finite_l = np.isfinite(traj_f32).all(axis=(1, 2))
     results["nonfinite_frac_langevin"] = float(1.0 - finite_l.mean())
     if finite_l.all():
@@ -583,6 +586,13 @@ def run_positive_control(
     traj_f32 = traj_f32[finite_l]
     results["js_langevin_f32"] = dihedral_js(traj_f32, reference, n_bins=n_bins)
     results["pwd_js_langevin_f32"] = pwd_js(traj_f32, reference)
+    if bf16_compare:
+        traj_bf16 = _segmented_langevin_stage(make_sim(True), results_folder,
+                                              f"langevin_bf16{stage_suffix}", resume)
+        traj_bf16 = traj_bf16[np.isfinite(traj_bf16).all(axis=(1, 2))]
+        results["js_langevin_bf16"] = dihedral_js(traj_bf16, reference, n_bins=n_bins)
+        results["js_bf16_vs_f32"] = dihedral_js(traj_bf16, traj_f32, n_bins=n_bins)
+        results["pwd_js_bf16_vs_f32"] = pwd_js(traj_bf16, traj_f32)
     results["t_noise_langevin"] = t_noise
     results["langevin_dt_scale"] = langevin_dt_scale
     results["langevin_steps"] = langevin_steps

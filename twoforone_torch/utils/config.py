@@ -7,9 +7,7 @@ of ``twoforone_tpu/utils/config.py``).
 - converts legacy args.pickle files (:func:`load_legacy_args_pickle`).
 
 Every field of the JAX package's config is kept, so a ``config.json``
-written by either package reads the same in both, including the fields that
-only the JAX trainer acts on (``bf16``, ``steps_per_host_loop``,
-``profile_steps``).
+written by either package reads the same in both.
 """
 
 from __future__ import annotations
@@ -88,7 +86,7 @@ class TrainConfig:
     langevin_t_diff: List[int] = field(default_factory=lambda: [12])
 
     # Extensions without a reference equivalent
-    bf16: bool = False  # bfloat16 score-net compute; the port refuses it (get_model)
+    bf16: bool = False  # bfloat16 score-net compute on float32 parameters (get_model)
     seed: int = 0
     ala2_train_cap: int = 500000  # reference hardcodes 500k (dataset_utils_empty.py:98)
     profile_steps: int = 0  # >0: profile that many training steps

@@ -33,13 +33,19 @@ def sm_count(device_index: int) -> int:
 
 @contextlib.contextmanager
 def float32_products():
-    """cuBLAS and cuDNN products in float32, not TF32, while the block runs,
-    and the caller's settings back afterwards. A CUDA graph keeps the kernels
-    chosen at its capture, so this also fixes what every replay runs."""
-    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """cuBLAS and cuDNN products summed in float32 while the block runs: no
+    TF32 for float32 operands, and no reduced-precision reduction for
+    bfloat16 ones (XLA sums bfloat16 products in float32); the caller's
+    settings come back afterwards. A CUDA graph keeps the kernels chosen at
+    its capture, so this also fixes what every replay runs."""
+    matmul = torch.backends.cuda.matmul
+    before = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+              matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = before
