@@ -40,7 +40,11 @@ models, with bench.py's settings:
   DDIM-100, training steps, and the sampling CLI under two ranks).
 - bfloat16 score-network compute: bench.py's ``bf16=True`` on every force
   path, sampling, training and the dipeptide positive control's bfloat16
-  Langevin stage.
+  Langevin stage;
+- the port as a user installs it: a wheel of the checkout, unpacked into a
+  directory of its own, runs chignolin (K1), trp-cage (clx) and villin (K4)
+  Langevin through its ``tfo-torch-sample`` console script, building its
+  kernels from the shipped sources into ``TFO_KERNEL_CACHE``.
 
 Phases (any failure exits non-zero):
 
@@ -131,6 +135,22 @@ Phases (any failure exits non-zero):
    x 8000 steps, T=250, 31 bins): the JAX function's keys, every frame
    finite, ``js_bf16_vs_f32 < 0.1`` and ``pwd_js_bf16_vs_f32 < 0.01``, the
    wall seconds of each stage.
+14. the port from an installed copy: ``pip wheel`` of a copy of the
+   checkout (``pyproject.toml`` and both packages, no staged weights); the
+   wheel holds every ``ops/csrc`` file (``tile_gemm.cuh`` too) and the
+   ``tfo-torch-*`` console scripts; unpacked into a temporary directory, it
+   is the ``PYTHONPATH`` of one process (this script with ``-P
+   --installed-run``, a temporary working directory, a fresh
+   ``TFO_KERNEL_CACHE``) that loads ``tfo-torch-sample`` through the
+   distribution's entry points and calls it on copies of the staged chain10
+   (K1, 1000 chains), chain20 (clx: K2, K3) and chain35 (``--fused always``:
+   K4) with phase 9's flags. Held: ``twoforone_torch`` imported from the
+   wheel, the three libraries built on first use in ``TFO_KERNEL_CACHE``
+   (seconds each) and nothing written inside the installed package,
+   launches equal to score calls and steps (phase 9's rule), the JAX CLI's
+   outputs, and chain10's output equal to phase 9's bit for bit; steps/s
+   beside phase 9's. The process's launches are added to the ``kernels``
+   line.
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -138,6 +158,7 @@ without the rest of the repository beside it, the script exits non-zero and
 prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -468,21 +489,11 @@ def ten_steps_agree(phase, gd, params, spec, chains, kernel_mode, dev):
         fail(f"{phase}: kernel path and plain path trajectories disagree")
 
 
-def cli_phase(reset_counts, add_counts, chignolin_sps):
-    """Phase 9: ``twoforone_torch.cli.sample.main`` on a copy of each staged
-    results directory of ``CLI_RUNS`` (the CLI writes into ``--model_path``).
-    For each run: the resolved force path and sampler kernel, the launch
-    counts against the score evaluations, the output's shape (the JAX CLI's
-    contract) and finiteness, the three files, the PDB reloaded, the wall
-    seconds and the Langevin rate. Returns the rates by run."""
-    import shutil
-    import tempfile
-
-    from twoforone_torch.cli import sample as cli
-    from twoforone_torch.data.pdb import load_pdb
-    from twoforone_torch.utils.artifacts import trained_dir
-
-    seen = {}
+@contextlib.contextmanager
+def timed_cli(cli, seen):
+    """The sampling CLI module ``cli`` with its Langevin engine and its
+    i.i.d. sampling timed (synchronized) into ``seen``, beside the force path
+    and the sampler kernel they took."""
 
     class TimedLangevin(cli.LangevinDiffusion):
         def sample(self, reference_temp=None):
@@ -502,14 +513,77 @@ def cli_phase(reset_counts, add_counts, chignolin_sps):
 
     plain_langevin, plain_sampling = cli.LangevinDiffusion, cli.sample_from_model
     cli.LangevinDiffusion, cli.sample_from_model = TimedLangevin, recorded_sampling
-    rates = {}
     try:
+        yield
+    finally:
+        cli.LangevinDiffusion, cli.sample_from_model = plain_langevin, plain_sampling
+
+
+def cli_expected(cli, argv, path, kernel):
+    """Phase 9's rule for a CLI run: its parsed arguments, the launches of
+    (K1, K2, K3, K4) that its score evaluations and steps make, the frames
+    it writes, the samples it draws and its Langevin steps."""
+    args = cli.build_parser().parse_args(argv)
+    mode = args.gen_mode
+    drawn = args.parallel_sim if mode == "langevin" else args.num_samples_eval
+    calls = -(-drawn // args.batch_size_gen) * (args.sample_steps or 1000)
+    steps = args.n_timesteps if mode == "langevin" else 0
+    want = tuple(c * calls + p * steps
+                 for c, p in zip(PER_CALL[kernel], PER_CALL.get(path, (0,) * 4)))
+    frames = (args.parallel_sim * args.n_timesteps // args.save_interval
+              if mode == "langevin" else args.num_samples_eval)
+    return args, want, frames, drawn, steps
+
+
+def cli_numbers(seen, wall, got, args, drawn, steps):
+    """The wall seconds, rates and launches of a CLI run."""
+    numbers = dict(wall_s=wall, sampling_s=seen["sampling_s"], launches_k1_fwd_bwd_k4=got)
+    if args.gen_mode == "langevin":
+        numbers.update(langevin_s=seen["langevin_s"], steps_per_s=steps / seen["langevin_s"],
+                       chains=args.parallel_sim)
+    else:
+        numbers["samples_per_s"] = drawn / seen["sampling_s"]
+    return numbers
+
+
+def cli_output_ok(results, mode, out, frames, beads):
+    """The JAX CLI's contract for what a run returns and writes: the shape,
+    finite values, and the .npy, .pt and .pdb files under ``results``.
+    Returns (ok, finite, the PDB read back)."""
+    from twoforone_torch.data.pdb import load_pdb
+
+    written = os.path.join(results, f"main_eval_output_{mode}", f"sample-{mode}")
+    saved, pt = np.load(f"{written}.npy"), torch.load(f"{written}.pt")
+    pdb = load_pdb(f"{written}.pdb")
+    finite = bool(np.isfinite(out).all())
+    ok = (tuple(out.shape) == (frames, beads, 3) and finite
+          and np.array_equal(saved, out) and np.array_equal(pt.numpy(), out)
+          and pdb.topology.n_atoms == beads and np.allclose(pdb.xyz, out[0], atol=1e-3))
+    return ok, finite, pdb
+
+
+def cli_phase(reset_counts, add_counts, chignolin_sps):
+    """Phase 9: ``twoforone_torch.cli.sample.main`` on a copy of each staged
+    results directory of ``CLI_RUNS`` (the CLI writes into ``--model_path``).
+    For each run: the resolved force path and sampler kernel, the launch
+    counts against the score evaluations, the output's shape (the JAX CLI's
+    contract) and finiteness, the three files, the PDB reloaded, the wall
+    seconds and the Langevin rate. Returns the rates and the outputs by run."""
+    import shutil
+    import tempfile
+
+    from twoforone_torch.cli import sample as cli
+    from twoforone_torch.utils.artifacts import trained_dir
+
+    seen = {}
+    rates, outputs = {}, {}
+    with timed_cli(cli, seen):
         for name, beads, flags, path, kernel in CLI_RUNS:
             with tempfile.TemporaryDirectory() as tmp:
                 results = os.path.join(tmp, name)
                 shutil.copytree(trained_dir(name), results)
                 argv = ["--model_path", results, *flags]
-                args = cli.build_parser().parse_args(argv)
+                args, want, frames, drawn, steps = cli_expected(cli, argv, path, kernel)
                 seen.clear()
                 reset_counts()
                 torch.cuda.synchronize()
@@ -517,32 +591,12 @@ def cli_phase(reset_counts, add_counts, chignolin_sps):
                 out = cli.main(argv)
                 wall = time.perf_counter() - t0
                 got = add_counts()
-                mode = args.gen_mode
-                drawn = args.parallel_sim if mode == "langevin" else args.num_samples_eval
-                calls = -(-drawn // args.batch_size_gen) * (args.sample_steps or 1000)
-                steps = args.n_timesteps if mode == "langevin" else 0
-                want = tuple(c * calls + p * steps
-                             for c, p in zip(PER_CALL[kernel], PER_CALL.get(path, (0,) * 4)))
-                frames = (args.parallel_sim * args.n_timesteps // args.save_interval
-                          if mode == "langevin" else args.num_samples_eval)
-                written = os.path.join(results, f"main_eval_output_{mode}", f"sample-{mode}")
-                saved, pt = np.load(f"{written}.npy"), torch.load(f"{written}.pt")
-                pdb = load_pdb(f"{written}.pdb")
-                label = f"{name}_{mode}"
-                rates[label] = dict(wall_s=wall, sampling_s=seen["sampling_s"],
-                                    launches_k1_fwd_bwd_k4=got)
-                if mode == "langevin":
-                    rates[label].update(langevin_s=seen["langevin_s"],
-                                        steps_per_s=steps / seen["langevin_s"],
-                                        chains=args.parallel_sim)
-                else:
-                    rates[label]["samples_per_s"] = drawn / seen["sampling_s"]
-                finite = bool(np.isfinite(out).all())
+                label = f"{name}_{args.gen_mode}"
+                rates[label] = cli_numbers(seen, wall, got, args, drawn, steps)
+                outputs[label] = out
+                files_ok, finite, pdb = cli_output_ok(results, args.gen_mode, out, frames, beads)
                 ok = (seen["kernel"] == kernel and seen.get("path") == path and got == want
-                      and tuple(out.shape) == (frames, beads, 3) and finite
-                      and np.array_equal(saved, out) and np.array_equal(pt.numpy(), out)
-                      and pdb.topology.n_atoms == beads
-                      and np.allclose(pdb.xyz, out[0], atol=1e-3))
+                      and files_ok)
                 extra = "".join(f" {k}={v:.3f}" for k, v in rates[label].items()
                                 if isinstance(v, float))
                 log(f"phase9 cli {label} {' '.join(flags)}: force_path={seen.get('path')} "
@@ -554,14 +608,12 @@ def cli_phase(reset_counts, add_counts, chignolin_sps):
                 if not ok:
                     fail(f"phase9: the CLI run {label} took another path, launched other "
                          "kernels than its score evaluations, or wrote wrong output")
-    finally:
-        cli.LangevinDiffusion, cli.sample_from_model = plain_langevin, plain_sampling
     ratio = rates["chain10_langevin"]["steps_per_s"] / chignolin_sps
     rates["chain10_langevin"]["over_phase3"] = ratio
     log(f"phase9 chignolin Langevin through the CLI at 1000 chains: "
         f"{rates['chain10_langevin']['steps_per_s']:.2f} steps/s, phase 3 {chignolin_sps:.2f}, "
         f"ratio {ratio:.3f} (not held: host noise around the kernel)")
-    return rates
+    return rates, outputs
 
 
 # Phase 10, training. (a) The trainer at chain10's published configuration
@@ -1145,6 +1197,236 @@ def positive_control_phase(reset_counts, add_counts, counts, dev):
     log("phase11 PhaseTimer:\n" + report)
     out["phases_s"] = dict(timer.totals)
     return out
+
+
+# ------------------------------------------------------------------ phase 14
+# The port as a user installs it: a wheel of the checkout, unpacked into a
+# directory of its own, and three of phase 9's runs through its console script
+# in a process that imports the port from there and builds the kernels from
+# the shipped sources into a fresh TFO_KERNEL_CACHE: chain10 Langevin (K1),
+# chain20 (clx: K2, K3) and chain35 with --fused always (K4), with phase 9's
+# flags, so that chain10's output is held to phase 9's bit for bit.
+INSTALLED_RUNS = tuple(CLI_RUNS[i] for i in (0, 2, 4))
+LIBRARIES = ("fused_score", "fused_score_cl", "attention_cl_core")
+CONSOLE_SCRIPTS = {"tfo-torch-sample": "twoforone_torch.cli.sample:console_main",
+                   "tfo-torch-train": "twoforone_torch.cli.train:console_main"}
+WHEEL_TIMEOUT_S = 300
+INSTALLED_TIMEOUT_S = 600  # three cold builds, one after another, and the runs
+
+
+def not_shipped(folder, names):
+    """What the wheel's source copy leaves out: built libraries, byte code
+    and the staged weights (no package data; the runs read them by path)."""
+    return {n for n in names if n in ("_build", "__pycache__")
+            or (n == "trained" and os.path.basename(folder) == "assets")}
+
+
+def tree_state(root):
+    """Every file and directory under ``root`` with its size and mtime."""
+    state = {}
+    for folder, dirs, files in os.walk(root):
+        for n in dirs + files:
+            st = os.stat(os.path.join(folder, n))
+            state[os.path.relpath(os.path.join(folder, n), root)] = (st.st_size, st.st_mtime_ns)
+    return state
+
+
+def build_wheel(tmp):
+    """A wheel of this checkout, built by pip from a copy in ``tmp`` (the
+    build leaves ``build/`` and ``*.egg-info`` beside its source); returns
+    its path and the seconds pip took."""
+    import glob
+    import shutil
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    src, out = os.path.join(tmp, "src"), os.path.join(tmp, "wheel")
+    os.makedirs(src)
+    shutil.copy(os.path.join(repo, "pyproject.toml"), src)
+    for package in ("twoforone_tpu", "twoforone_torch"):
+        shutil.copytree(os.path.join(repo, package), os.path.join(src, package),
+                        ignore=not_shipped)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", src, "--no-deps", "--no-build-isolation",
+         "--no-index", "--no-cache-dir", "--disable-pip-version-check", "-w", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=WHEEL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase14: pip could not build a wheel of the checkout:\n{proc.stdout[-6000:]}")
+    (wheel,) = glob.glob(os.path.join(out, "*.whl"))
+    return wheel, seconds
+
+
+def installed_phase(cli_outputs, cli_rates):
+    """Phase 14: the port from an installed copy. Builds a wheel of the
+    checkout, checks that it ships every kernel source and header and the
+    port's console scripts, unpacks it, and runs ``INSTALLED_RUNS`` through
+    the ``tfo-torch-sample`` entry point in a process whose ``PYTHONPATH`` is
+    the unpacked wheel, whose working directory is a temporary one and whose
+    ``TFO_KERNEL_CACHE`` is a fresh directory (``installed_run_main``).
+    Holds: the port imported from the wheel, the three libraries built there
+    and nothing written inside the installed package, launches equal to the
+    score calls and steps (phase 9's rule), the JAX CLI's outputs, and
+    chain10's output equal to phase 9's bit for bit. Returns its numbers and
+    the launches of (K1, K2, K3, K4) in the process."""
+    import configparser
+    import shutil
+    import tempfile
+    import zipfile
+
+    from twoforone_torch.cli import sample as cli
+    from twoforone_torch.utils.artifacts import trained_dir
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        wheel, wheel_s = build_wheel(tmp)
+        site = os.path.join(tmp, "installed")
+        with zipfile.ZipFile(wheel) as z:
+            names = set(z.namelist())
+            z.extractall(site)
+            (eps,) = [n for n in names if n.endswith(".dist-info/entry_points.txt")]
+            scripts = configparser.ConfigParser()
+            scripts.read_string(z.read(eps).decode())
+        csrc = sorted(f"twoforone_torch/ops/csrc/{f}"
+                      for f in os.listdir(os.path.join(repo, "twoforone_torch", "ops", "csrc")))
+        shipped = {n: n in names for n in csrc}
+        console = {k: scripts["console_scripts"].get(k) for k in CONSOLE_SCRIPTS}
+        ok = all(shipped.values()) and console == CONSOLE_SCRIPTS
+        log(f"phase14 wheel {os.path.basename(wheel)} built_s={wheel_s:.2f} "
+            f"files={len(names)} csrc_shipped={shipped} console_scripts={console} ok={ok}")
+        if not ok:
+            fail("phase14: the wheel lacks a kernel source or header, or the port's "
+                 "console scripts")
+
+        cache, work = os.path.join(tmp, "kernel_cache"), os.path.join(tmp, "work")
+        os.makedirs(cache)
+        os.makedirs(work)
+        runs = []
+        for name, beads, flags, path, kernel in INSTALLED_RUNS:
+            results = os.path.join(tmp, "runs", name)
+            shutil.copytree(trained_dir(name), results)
+            runs.append(["--model_path", results, *flags])
+        spec = os.path.join(tmp, "spec.json")
+        result_path = os.path.join(tmp, "result.json")
+        with open(spec, "w") as f:
+            json.dump(dict(runs=runs, result=result_path), f)
+        package = os.path.join(site, "twoforone_torch")
+        before = tree_state(package)
+        env = dict(os.environ, PYTHONPATH=site, TFO_KERNEL_CACHE=cache,
+                   PYTHONDONTWRITEBYTECODE="1")
+        # -P: the script's own directory, the checkout, is not put on sys.path.
+        cmd = [sys.executable, "-P", os.path.abspath(__file__), "--installed-run", spec]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, timeout=INSTALLED_TIMEOUT_S)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(f"--- phase14 installed process\n{proc.stdout[-12000:]}", file=sys.stderr)
+            fail(f"phase14: the installed copy's process exited {proc.returncode}")
+        with open(result_path) as f:
+            got = json.load(f)
+        untouched = tree_state(package) == before
+        real_site = os.path.realpath(site) + os.sep
+        from_site = all(os.path.realpath(got[k]).startswith(real_site)
+                        for k in ("module", "cli_module"))
+        libraries = got["libraries"]
+        built_s = {n: s for r in got["runs"] for n, s in r["built_s"].items()}
+        in_cache = (got["build_dir"] == cache and sorted(built_s) == sorted(LIBRARIES)
+                    and all(os.path.dirname(p) == cache and os.path.isfile(p)
+                            for p in libraries.values())
+                    and sorted(os.listdir(cache)) == sorted(map(os.path.basename,
+                                                                libraries.values())))
+        ok = (from_site and got["dist_root"] == os.path.realpath(site) and in_cache
+              and untouched and got["entry_point"] == CONSOLE_SCRIPTS["tfo-torch-sample"])
+        log(f"phase14 installed copy: twoforone_torch={got['module']} "
+            f"entry_point=tfo-torch-sample -> {got['entry_point']} from {got['dist_root']} "
+            f"from_wheel={from_site} process_s={process_s:.2f}")
+        log(f"phase14 kernel builds from the installed sources, on first use: "
+            + " ".join(f"{n}={s:.2f}s" for n, s in sorted(built_s.items()))
+            + f" build_dir={got['build_dir']} (TFO_KERNEL_CACHE) libraries_there={in_cache} "
+            f"nothing_written_in_the_installed_package={untouched} ok={ok}")
+        if not ok:
+            fail("phase14: the installed copy imported the checkout, built its kernels "
+                 "elsewhere than TFO_KERNEL_CACHE, or wrote inside the installed package")
+
+        numbers = dict(wheel_s=wheel_s, process_s=process_s, build_s=built_s, runs={})
+        total, outs = [0, 0, 0, 0], {}
+        for (name, beads, flags, path, kernel), argv, run in zip(INSTALLED_RUNS, runs,
+                                                                   got["runs"]):
+            args, want, frames, drawn, steps = cli_expected(cli, argv, path, kernel)
+            label = f"{name}_{args.gen_mode}"
+            counts = tuple(run["counts"])
+            total = [a + b for a, b in zip(total, counts)]
+            out = outs[label] = np.load(os.path.join(
+                argv[1], f"main_eval_output_{args.gen_mode}", f"sample-{args.gen_mode}.npy"))
+            files_ok, finite, _ = cli_output_ok(argv[1], args.gen_mode, out, frames, beads)
+            rate = cli_numbers(run, run["wall_s"], counts, args, drawn, steps)
+            rate["phase9_steps_per_s"] = cli_rates[label]["steps_per_s"]
+            numbers["runs"][label] = rate
+            ok = (run["rc"] == 0 and run["kernel"] == kernel and run.get("path") == path
+                  and counts == want and files_ok)
+            log(f"phase14 installed tfo-torch-sample {label} {' '.join(flags)}: "
+                f"exit={run['rc']} force_path={run.get('path')} (want {path}) "
+                f"sampler_kernel={run['kernel']} (want {kernel}) launches_k1_fwd_bwd_k4="
+                f"{counts} (want {want}: score calls and steps) shape={tuple(out.shape)} "
+                f"finite={finite} files_ok={files_ok} wall_s={run['wall_s']:.3f} "
+                f"steps_per_s={rate['steps_per_s']:.2f} (phase 9 "
+                f"{rate['phase9_steps_per_s']:.2f}) ok={ok}")
+            if not ok:
+                fail(f"phase14: the installed run {label} took another path, launched other "
+                     "kernels than its score evaluations, or wrote wrong output")
+        ref, out = cli_outputs["chain10_langevin"], outs["chain10_langevin"]
+        same = out.dtype == ref.dtype and out.shape == ref.shape and out.tobytes() == ref.tobytes()
+        log(f"phase14 chain10 Langevin from the installed copy equals phase 9's output "
+            f"bit for bit: {same}")
+        if not same:
+            fail("phase14: the installed copy's chain10 run differs from phase 9's")
+    return numbers, tuple(total)
+
+
+def installed_run_main(spec_path):
+    """The process of phase 14, started by ``installed_phase`` with the
+    unpacked wheel as ``PYTHONPATH``: loads the ``tfo-torch-sample`` console
+    script through the installed distribution's entry points and calls it,
+    as its wrapper would, on each run of the spec with the counters set to 0
+    just before; writes where the port came from, the build directory, the
+    libraries and each run's exit value, launches, build seconds and times
+    to the spec's result file."""
+    from importlib.metadata import entry_points
+
+    import twoforone_torch
+    from twoforone_torch.cli import sample as cli
+    from twoforone_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    (ep,) = entry_points(group="console_scripts", name="tfo-torch-sample")
+    script = ep.load()
+    seen, runs = {}, []
+    with timed_cli(cli, seen):
+        for argv in spec["runs"]:
+            seen.clear()
+            built_before = set(_build.seconds)
+            zero_counts()
+            sys.argv = ["tfo-torch-sample", *argv]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = script()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append(dict(seen, rc=rc, wall_s=wall, counts=kernel_counts(),
+                             built_s={n: _build.seconds[n]
+                                      for n in set(_build.seconds) - built_before}))
+    with open(spec["result"], "w") as f:
+        json.dump(dict(module=twoforone_torch.__file__, cli_module=cli.__file__,
+                       entry_point=ep.value,
+                       dist_root=os.path.realpath(ep.dist.locate_file("")),
+                       build_dir=_build.build_dir(),
+                       libraries={n: _build.library_path(n) for n in LIBRARIES},
+                       runs=runs), f)
+    return 0
 
 
 # ------------------------------------------------------------------ phase 12
@@ -2522,7 +2804,7 @@ def main():
     mark("phase8")
 
     # ---------------------------------------------------------- phase 9
-    cli_rates = cli_phase(reset_counts, add_counts, sps[1000])
+    cli_rates, cli_outputs = cli_phase(reset_counts, add_counts, sps[1000])
     mark("phase9")
 
     # ---------------------------------------------------------- phase 10
@@ -2544,6 +2826,12 @@ def main():
     bf16_numbers = bf16_phase(reset_counts, add_counts, dev,
                               training["chain10_step"]["steps_per_s"])
     mark("phase13")
+
+    # ---------------------------------------------------------- phase 14
+    installed, installed_launches = installed_phase(cli_outputs, cli_rates)
+    for name, count in zip(("k1", "fwd", "bwd", "k4"), installed_launches):
+        launches[name] += count
+    mark("phase14")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -2556,6 +2844,7 @@ def main():
     log("positive_control " + json.dumps(control))
     log("mesh " + json.dumps(mesh_numbers))
     log("bf16 " + json.dumps(bf16_numbers))
+    log("installed " + json.dumps(installed))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))
@@ -2616,4 +2905,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 12 (b), started by main()
         sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--installed-run"]:  # phase 14's process, started by main()
+        sys.exit(installed_run_main(sys.argv[2]))
     sys.exit(main())

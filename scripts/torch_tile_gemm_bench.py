@@ -71,11 +71,12 @@ ITERS = 20
 
 def build():
     csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(_build.BUILD_DIR, "tile_gemm_bench.cu")
+    folder = _build.build_dir()
+    os.makedirs(folder, exist_ok=True)
+    src = os.path.join(folder, "tile_gemm_bench.cu")
     with open(src, "w") as f:
         f.write(SOURCE)
-    so = os.path.join(_build.BUILD_DIR, "tile_gemm_bench.so")
+    so = os.path.join(folder, "tile_gemm_bench.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so, src],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:

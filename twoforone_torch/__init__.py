@@ -10,3 +10,8 @@ Entry points take an explicit ``device`` that defaults to ``"cuda"`` and
 raise when CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch
 paths on the host.
 """
+
+__version__ = "0.1.0"
+
+from twoforone_torch.core.diffusion import GaussianDiffusion  # noqa: F401
+from twoforone_torch.models import get_model  # noqa: F401

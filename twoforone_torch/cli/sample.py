@@ -2,6 +2,7 @@
 outputs, plus ``--device``).
 
     python -m twoforone_torch.cli.sample --model_path <results dir> --gen_mode iid|langevin
+    tfo-torch-sample --model_path <results dir> ...   (the installed console script)
 
 Two generative modes:
 - ``--gen_mode iid``: batched reverse-diffusion sampling,
@@ -298,6 +299,15 @@ def main(argv=None):
         trainset.topology,
     )
     return sampled_mol
+
+
+
+def console_main() -> int:
+    """The ``tfo-torch-sample`` console script: :func:`main` on the command line.
+    Returns 0: the script's wrapper hands the return value to ``sys.exit``,
+    which would read the samples array that :func:`main` returns as a failure."""
+    main()
+    return 0
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 plus ``--device``).
 
     python -m twoforone_torch.cli.train --mol chignolin --data_folder <dir> ... [--device cpu]
+    tfo-torch-train --mol chignolin ...   (the installed console script)
 
 Boolean flags take true/false strings. ``--mol alanine_dipeptide`` means
 ``alanine_dipeptide_fuberlin``, as in the JAX CLI. Runs on the card
@@ -178,6 +179,15 @@ def main(argv=None):
                       device=device)
     trainer.train()
     return trainer
+
+
+
+def console_main() -> int:
+    """The ``tfo-torch-train`` console script: :func:`main` on the command line.
+    Returns 0: the script's wrapper hands the return value to ``sys.exit``,
+    which would read the trainer that :func:`main` returns as a failure."""
+    main()
+    return 0
 
 
 if __name__ == "__main__":

@@ -36,7 +36,6 @@ float32. ``make_sample_fn`` binds the weights once where the JAX one jits.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, Optional
@@ -402,15 +401,18 @@ class GaussianDiffusion:
         ``params`` loaded, on ``device``. ``bf16`` computes the network in
         bfloat16 (its weights stay float32; a model built in bfloat16 stays
         so either way, as in the JAX package)."""
-        from twoforone_torch.models.graph_transformer import score_forward
-        from twoforone_torch.utils.convert import params_from_jax
+        from twoforone_torch.models.graph_transformer import make_score_fn
 
-        net = copy.deepcopy(self.model).to(resolve_device(device))
-        net.load_state_dict(params_from_jax(params))
-        net.eval()
-        if bf16:
-            net = net.with_dtype(torch.bfloat16)
-        return lambda x, t_norm: score_forward(net, x, t_norm)
+        model = self.model.with_dtype(torch.bfloat16) if bf16 else self.model
+        return make_score_fn(model, params, device)
+
+    def init_params(self, seed: int) -> dict:
+        """Random weights for the model as a flax parameter tree (numpy
+        arrays), from numpy's generator seeded with ``seed``: the keys and
+        shapes of the JAX method's, not its bits."""
+        from twoforone_torch.models.graph_transformer import init_params
+
+        return init_params(self.model, seed)
 
     # -- training loss -------------------------------------------------------
     def loss(self, params, mol, generator, device="cuda"):

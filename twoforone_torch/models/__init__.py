@@ -2,7 +2,11 @@
 
 import torch
 
-from twoforone_torch.models.graph_transformer import GraphTransformer
+from twoforone_torch.models.graph_transformer import (  # noqa: F401
+    GraphTransformer,
+    score_forward,
+    make_score_fn,
+)
 
 # Reference flags that never reach the GraphTransformer constructor. The
 # reference parses them but drops them, which would silently train another

@@ -52,7 +52,8 @@ from twoforone_torch.ops.attention import (
     geometric_edge_attention_packed,
 )
 from twoforone_torch.ops.geometry import center_zero
-from twoforone_torch.utils.device import float32_products
+from twoforone_torch.utils.convert import params_from_jax
+from twoforone_torch.utils.device import float32_products, resolve_device
 
 
 def _cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -373,3 +374,13 @@ def _score_forward(model, x, t, return_energy, create_graph):
         # an energy that does not depend on x: its force is zero.
         return torch.zeros_like(x)
     return -grad
+
+
+def make_score_fn(model: GraphTransformer, params, device="cuda"):
+    """Closure ``(x, t_norm) -> eps_hat`` used by the diffusion and dynamics
+    loops: :func:`score_forward` of a copy of ``model`` on ``device`` with
+    ``params`` (the flax parameter tree) loaded."""
+    net = copy.deepcopy(model).to(resolve_device(device))
+    net.load_state_dict(params_from_jax(params))
+    net.eval()
+    return lambda x, t_norm: score_forward(net, x, t_norm)

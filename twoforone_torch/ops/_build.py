@@ -7,11 +7,15 @@ compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v [-split-compile 0] \
          -o <build dir>/<name>-<hash>.so ops/csrc/<name>.cu
 
-The build directory is ``twoforone_torch/_build/`` (listed in
-``.gitignore``); a library is named by a hash of its source, of every header
-under ``ops/csrc`` (``*.cuh``, which the sources include) and of the flags, so
-an edited source or header is rebuilt on first use and an unchanged one is
-reused.
+The build directory is chosen at first use by :func:`build_dir`, with the
+JAX package's rule for its compile cache: ``$TFO_KERNEL_CACHE`` when it is
+set, else ``twoforone_torch/_build/`` beside the package's modules (listed in
+``.gitignore``) when that can be written, else
+``$XDG_CACHE_HOME/twoforone_torch_kernels`` (``~/.cache/...`` by default), so
+that an installed copy in a read-only site-packages builds too. A library is
+named by a hash of its source, of every header under ``ops/csrc`` (``*.cuh``,
+which the sources include) and of the flags, so an edited source or header is
+rebuilt on first use and an unchanged one is reused.
 Nothing is compiled when a module is imported: :func:`load` builds on first
 call.
 """
@@ -25,9 +29,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(
+PACKAGE_BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
 NVCC_FLAGS = [
@@ -41,8 +47,37 @@ SPLIT_COMPILE = ["-split-compile", "0"]
 
 _loaded: dict = {}
 # Compiler output of each library compiled by this process (``-Xptxas -v``
-# prints each kernel's registers, shared memory and spills).
+# prints each kernel's registers, shared memory and spills), and the seconds
+# each compilation took.
 logs: dict = {}
+seconds: dict = {}
+
+
+def writable(path: str) -> bool:
+    """Whether ``path`` can be made and written, found by trying: the
+    directory is made and a file opened and removed in it (mode bits say
+    nothing for root)."""
+    try:
+        os.makedirs(path, exist_ok=True)
+        fd, probe = tempfile.mkstemp(dir=path, prefix=".probe-")
+        os.close(fd)
+        os.remove(probe)
+    except OSError:
+        return False
+    return True
+
+
+def build_dir() -> str:
+    """Where the libraries are built: ``$TFO_KERNEL_CACHE`` when it is set,
+    else the package's ``_build/`` when it can be written, else
+    ``$XDG_CACHE_HOME/twoforone_torch_kernels`` (``~/.cache`` when that
+    variable is unset). A directory that cannot be made fails the build."""
+    if os.environ.get("TFO_KERNEL_CACHE"):
+        return os.environ["TFO_KERNEL_CACHE"]
+    if writable(PACKAGE_BUILD_DIR):
+        return PACKAGE_BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "twoforone_torch_kernels")
 
 
 def _nvcc() -> str:
@@ -72,7 +107,7 @@ def library_path(name: str) -> str:
     for path in [os.path.join(_CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))]:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -83,12 +118,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     so = library_path(name)
     if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(os.path.dirname(so), exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *_flags(), "-o", tmp, os.path.join(_CSRC, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        seconds[name] = time.perf_counter() - t0
         logs[name] = proc.stdout
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")

@@ -9,7 +9,8 @@ before a dense softmax over all beads:
 ``edge_biased_attention`` takes the explicit (B, N, N, De) edge tensor; the
 two geometric forms fold the (linear) edge pipeline onto the raw coordinate
 channels so that no N^2 feature tensor exists. All three compute the same
-function up to rounding. Layouts match the JAX package: q, k, v are
+function up to rounding; ``edge_biased_attention_naive`` is the direct
+form, kept as the tests' oracle. Layouts match the JAX package: q, k, v are
 (B, N, H, dh), coordinates (B, N, 3).
 """
 
@@ -38,6 +39,18 @@ def edge_biased_attention(q, k, v, edges, w_e, b_e, scale):
     attn_e = torch.einsum("bhij,bije->bhie", attn, edges)
     out = out + torch.einsum("bhie,ehd->bihd", attn_e, w_e)
     return out + b_e[None, None]  # rows of attn sum to 1
+
+
+def edge_biased_attention_naive(q, k, v, edges, w_e, b_e, scale):
+    """Direct transcription of the attention math, with the per-head edge
+    tensor (B, N, N, H, dh) materialized (test oracle). Arguments as
+    :func:`edge_biased_attention`."""
+    ekv = torch.einsum("bije,ehd->bijhd", edges, w_e) + b_e[None, None, None]
+    k_full = k[:, None, :, :, :] + ekv  # (B, i, j, H, dh) with k broadcast over i
+    v_full = v[:, None, :, :, :] + ekv
+    sim = torch.einsum("bihd,bijhd->bhij", q, k_full) * scale
+    attn = torch.softmax(sim, dim=-1)
+    return torch.einsum("bhij,bijhd->bihd", attn, v_full)
 
 
 def geometric_edge_attention_packed(q, k, v, x, k_diff, k_dist, b_comb, scale):

@@ -23,6 +23,17 @@ def center_zero(x: torch.Tensor) -> torch.Tensor:
     return x - x.mean(dim=-2, keepdim=True)
 
 
+def assert_center_zero(x, eps: float = 1e-3) -> None:
+    """Host-side check that each molecule's centre of geometry is at zero
+    (tests and debug paths; the pipeline keeps the invariant by
+    :func:`center_zero`). ``x``: (..., N, 3), a tensor or an array."""
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    assert x.ndim >= 2 and x.shape[-1] == 3, "Dimensionality error"
+    center_max = float(np.abs(x.mean(axis=-2)).max())
+    if center_max >= eps:
+        raise AssertionError(f"Center not at zero: abs max at {center_max}")
+
+
 def rotation_matrices(thetas: torch.Tensor) -> torch.Tensor:
     """Composed Euler rotations R = Rz @ Ry @ Rx from the angles ``thetas``
     (3, B) (rows: x, y, z) -> (B, 3, 3): the JAX package's matrices for the

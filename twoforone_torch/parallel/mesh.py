@@ -174,13 +174,14 @@ def local_rows(n: int, mesh: Optional[Mesh]) -> slice:
     return slice(rank * per, (rank + 1) * per)
 
 
-def shard_batch(batch, mesh: Optional[Mesh] = None, device="cpu") -> torch.Tensor:
+def shard_batch(batch, mesh: Optional[Mesh] = None, device="cuda") -> torch.Tensor:
     """This rank's part of a global batch as a float32 tensor on the rank's
-    device (on ``device`` without a mesh). As in the JAX package's
+    device (on ``device`` without a mesh, the card by default: it raises
+    where CUDA is absent unless ``device="cpu"``). As in the JAX package's
     multi-process form, each process passes its LOCAL part (the global batch
     axis is the local one times the mesh size); no data crosses ranks."""
     return torch.as_tensor(batch, dtype=torch.float32,
-                           device=device if mesh is None else mesh.device)
+                           device=resolve_device(device) if mesh is None else mesh.device)
 
 
 def _distributed(mesh: Optional[Mesh]) -> bool:
