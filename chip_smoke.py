@@ -44,7 +44,13 @@ models, with bench.py's settings:
 - the port as a user installs it: a wheel of the checkout, unpacked into a
   directory of its own, runs chignolin (K1), trp-cage (clx) and villin (K4)
   Langevin through its ``tfo-torch-sample`` console script, building its
-  kernels from the shipped sources into ``TFO_KERNEL_CACHE``.
+  kernels from the shipped sources into ``TFO_KERNEL_CACHE``;
+- the reproduction workflows (``scripts/torch_*.py``): the paper-scale
+  chignolin Langevin production run, cut in steps, straight and then
+  SIGKILLed, preempted and resumed (the fused force kernel), the evaluation
+  scripts on its frames and on alanine-dipeptide samples, the noise-level
+  sweep on trp-cage (the attention-core path) and the strided-sampler
+  quality ladder.
 
 Phases (any failure exits non-zero):
 
@@ -151,6 +157,24 @@ Phases (any failure exits non-zero):
    outputs, and chain10's output equal to phase 9's bit for bit; steps/s
    beside phase 9's. The process's launches are added to the ``kernels``
    line.
+15. the reproduction workflows: (a) ``scripts/torch_paper_scale_langevin.py``
+   on the staged chain10, 100 chains x 40 000 steps (cut from 6 000 000), a
+   save every 500, segments of 10 000: a straight run through its ``main``
+   (K1 launches equal to the 1000 i.i.d. calls plus the steps; steps/s,
+   chain-steps/s and the 6M-step wall projected on this card), then its
+   first 10 000 steps in segments of 2 500, in three processes sharing one
+   ``--out``: SIGKILLed during the third segment, relaunched under
+   ``TWOFORONE_PREEMPT_FLAG`` (the flag created once ``coords_seg002.npy``
+   exists; exit code 75 at that boundary), relaunched to the end; the
+   frames equal the straight run's first 20 saves bit for bit and score
+   as they do, ``meta.json`` shows 2 resumes; (b)
+   ``torch_evaluate_fastfolders.py --no_plots`` on (a)'s frames and
+   ``torch_evaluate_ala2.py --no_plots`` on 4096 i.i.d. samples of the
+   staged ala5 (K1), each in a process that cannot import JAX, flax, optax
+   or the JAX package: exit 0, the JAX scripts' keys, finite values; (c)
+   ``torch_langevin_t_sweep.py`` on the staged chain20 (two t, 256 chains x
+   2000 steps; K2 and K3 three times a step) and ``torch_ddim_quality.py``
+   (DDIM-100 and DDIM-20, 4096 samples, the plain network: no launch).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -2106,6 +2130,322 @@ def bf16_phase(reset_counts, add_counts, dev, train_sps):
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+# The reproduction workflows (scripts/torch_*.py) as a user runs them on the
+# card. (a) The paper-scale production run (100 chains x 6 000 000 steps,
+# a save every 500) cut in steps: a straight run through the script's main
+# in this process, then its first quarter again in subprocesses sharing one
+# --out, in four shorter segments: the first SIGKILLed during its third
+# segment, the second relaunched under TWOFORONE_PREEMPT_FLAG and yielding
+# (exit 75) at the boundary after its first segment, the third finishing;
+# its frames equal the straight run's first quarter bit for bit. (b)
+# The two evaluation scripts, in subprocesses, on (a)'s frames and on
+# i.i.d. samples of the staged ala5. (c) The t-sweep on the staged chain20
+# (clx: K2, K3) and the quality ladder (the plain network).
+PAPER_CHAINS = 100
+PAPER_STEPS = 40_000  # cut from the production run's 6 000 000
+PAPER_FULL_STEPS = 6_000_000
+PAPER_SAVE = 500
+PAPER_SEGMENT = 10_000
+# The killed and resumed run: the straight run's first 10 000 steps in four
+# segments (the straight run's noise is drawn step by step, so the segment
+# length does not change the frames).
+RESUME_STEPS, RESUME_SEGMENT = 10_000, 2_500
+PAPER_PROCESS_TIMEOUT_S = 240
+EVAL_TIMEOUT_S = 300
+ALA2_SAMPLES = 4096
+SWEEP_T = (10, 15)
+SWEEP_CHAINS, SWEEP_STEPS, SWEEP_SAVE = 256, 2000, 100
+SWEEP_EVAL_SAMPLES = 20_000  # cut from 50 000
+QUALITY_STEPS = (100, 20)
+QUALITY_SAMPLES = 4096  # cut from 100 000
+PHASE15_BUDGET_S = 180
+# The keys of the JAX scripts' products (tests/test_torch_workflow_scripts.py
+# holds each set equal to the JAX script's).
+PAPER_RESULT_KEYS = (
+    "chain_steps_per_s", "dt_scale", "frames_saved", "integration_wall_s",
+    "langevin_ergodic", "langevin_max_occupancy_error", "langevin_min_hop_fraction",
+    "min_median_hops_per_chain", "nonfinite_chain_frac", "resumes", "steps_per_s",
+    "t_noise", "tic_js_langevin", "workload",
+)
+FASTFOLDER_KEYS = ("Contact BCE to folded", "PWD JS (offset 3)", "RMSD mean (A)", "TIC JS")
+ALA2_KEYS = ("Dihedral JS", "Dihedral free-energy MSE (kcal/mol)^2", "KL(ref||sample)",
+             "KL(sample||ref)")
+SWEEP_KEYS = ("chains", "dt_scale", "n_beads", "steps", "t", "tic_js_floor")
+QUALITY_KEYS = ("bf16", "eta", "n_beads", "num_samples", "solver", "tic_js_floor",
+                *(f"{name}_{k}" for k in QUALITY_STEPS
+                  for name in ("tic_js_steps", "samples_per_sec_steps")))
+# Every script of phase 15 runs in a process of its own through this runner:
+# JAX, flax, optax and the JAX package cannot be imported there (a machine
+# without them), and with a flag path and a segment file name it creates the
+# preemption flag the moment that file is in place (the relaunch of (a): an
+# outside watcher could miss the milliseconds between the file and the next
+# segment boundary).
+SCRIPT_RUNNER = """
+import os, runpy, sys
+for name in ("jax", "flax", "optax", "twoforone_tpu"):
+    sys.modules[name] = None
+flag, target, script = sys.argv[1:4]
+if flag:
+    replace = os.replace
+    def hooked(src, dst, *a, **k):
+        replace(src, dst, *a, **k)
+        if os.path.basename(dst) == target:
+            open(flag, "w").close()
+    os.replace = hooked
+sys.argv = [script, *sys.argv[4:]]
+runpy.run_path(script, run_name="__main__")
+"""
+
+
+def script_command(name, args, flag="", target=""):
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name)
+    return [sys.executable, "-c", SCRIPT_RUNNER, flag, target, script, *args]
+
+
+def run_script(name, args, log_path, env=None, timeout=EVAL_TIMEOUT_S):
+    """``scripts/<name>`` in a process of its own (``SCRIPT_RUNNER``);
+    returns its exit code and the end of its output (also in ``log_path``)."""
+    with open(log_path, "w") as f:
+        proc = subprocess.run(script_command(name, args), stdout=f,
+                              stderr=subprocess.STDOUT, env=env, timeout=timeout)
+    with open(log_path) as f:
+        return proc.returncode, f.read()[-3000:]
+
+
+def all_finite(tree):
+    if isinstance(tree, dict):
+        return all(all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(all_finite(v) for v in tree)
+    return tree is None or isinstance(tree, (bool, str)) or bool(np.isfinite(tree))
+
+
+def workflow_phase(reset_counts, add_counts, dev, phase3_sps):
+    """Phase 15 (a)-(c); returns the numbers it measured."""
+    import importlib.util
+    import shutil
+    import signal
+    import tempfile
+
+    from twoforone_torch.cli.sample import load_model
+    from twoforone_torch.data.synthetic import chain_dataset
+    from twoforone_torch.train.positive_control import chain_control_components
+    from twoforone_torch.utils.artifacts import trained_dir
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(repo, "scripts"))
+    import torch_ddim_quality
+    import torch_langevin_t_sweep
+    import torch_paper_scale_langevin
+
+    absent = {m: importlib.util.find_spec(m) is None for m in ("jax", "matplotlib", "sklearn")}
+    out = {"not_installed": absent}
+    started = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workflows_")
+    env = {k: v for k, v in os.environ.items() if k != "TWOFORONE_PREEMPT_FLAG"}
+    try:
+        # ------------------------------------------------------------ (a)
+        n_seg = PAPER_STEPS // PAPER_SEGMENT
+        args = ["--chains", str(PAPER_CHAINS), "--steps", str(PAPER_STEPS),
+                "--save_interval", str(PAPER_SAVE), "--segment_steps", str(PAPER_SEGMENT),
+                "--device", str(dev)]
+        straight = os.path.join(tmp, "straight")
+        reset_counts()
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "straight.log"), "w") as f, contextlib.redirect_stdout(f):
+            res = torch_paper_scale_langevin.main(["--out", straight, *args])
+        wall = time.perf_counter() - t0
+        got = add_counts()
+        want = (1000 + PAPER_STEPS, 0, 0, 0)  # the ancestral chain's calls and the steps
+        frames = torch_paper_scale_langevin.segment_frames(straight, n_seg)
+        ok = (got == want and set(res) == set(PAPER_RESULT_KEYS) and all_finite(res)
+              and frames.shape == (PAPER_CHAINS, PAPER_STEPS // PAPER_SAVE, 10, 3)
+              and res["resumes"] == 0 and res["nonfinite_chain_frac"] == 0.0)
+        projected = PAPER_FULL_STEPS / res["steps_per_s"]
+        out["paper_scale"] = dict(
+            res, wall_s=wall, launches=got, projected_6m_wall_s=projected,
+            projected_6m_wall_h=projected / 3600)
+        log(f"phase15 (a) torch_paper_scale_langevin.py {PAPER_CHAINS} chains x {PAPER_STEPS} "
+            f"steps (cut from {PAPER_FULL_STEPS}), save every {PAPER_SAVE}, {n_seg} segments of "
+            f"{PAPER_SEGMENT}: wall_s={wall:.2f} steps_per_s={res['steps_per_s']} "
+            f"chain_steps_per_s={res['chain_steps_per_s']} (phase 3 at 100 chains "
+            f"{phase3_sps:.2f}) projected 6M-step wall_s={projected:.0f} "
+            f"({projected / 3600:.2f} h) launches_k1_fwd_bwd_k4={got} (want {want}: 1000 "
+            f"i.i.d. calls + {PAPER_STEPS} steps) results={json.dumps(res)} ok={ok}")
+        if not ok:
+            fail("phase15 (a): the straight paper-scale run launched K1 another number of "
+                 "times than its i.i.d. calls and steps, or its results are incomplete")
+
+        resumed = os.path.join(tmp, "resumed")
+        script = "torch_paper_scale_langevin.py"
+        argv = ["--out", resumed, "--chains", str(PAPER_CHAINS), "--steps", str(RESUME_STEPS),
+                "--save_interval", str(PAPER_SAVE), "--segment_steps", str(RESUME_SEGMENT),
+                "--device", str(dev)]
+        n_resumed = RESUME_STEPS // RESUME_SEGMENT
+        seg = lambda s: os.path.join(resumed, f"coords_seg{s:03d}.npy")  # noqa: E731
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "killed.log"), "w") as f:
+            first = subprocess.Popen(script_command(script, argv), stdout=f,
+                                     stderr=subprocess.STDOUT, env=env)
+            while not os.path.exists(seg(1)) and first.poll() is None:
+                if time.perf_counter() - t0 > PAPER_PROCESS_TIMEOUT_S:
+                    first.kill()
+                    fail("phase15 (a): the first process wrote no second segment in time")
+                time.sleep(0.05)
+            first.send_signal(signal.SIGKILL)
+            first.wait()
+        killed_in_third = first.returncode == -signal.SIGKILL and not os.path.exists(seg(2))
+        flag = os.path.join(tmp, "preempt.flag")
+        with open(os.path.join(tmp, "preempted.log"), "w") as f:
+            second = subprocess.run(
+                script_command(script, argv, flag, os.path.basename(seg(2))), stdout=f,
+                stderr=subprocess.STDOUT, env=dict(env, TWOFORONE_PREEMPT_FLAG=flag),
+                timeout=PAPER_PROCESS_TIMEOUT_S)
+        yielded = (second.returncode == 75 and os.path.exists(flag) and os.path.exists(seg(2))
+                   and not os.path.exists(seg(3)))
+        os.remove(flag)
+        third, tail = run_script(script, argv,
+                                 os.path.join(tmp, "finished.log"), env,
+                                 PAPER_PROCESS_TIMEOUT_S)
+        kill_wall = time.perf_counter() - t0
+        with open(os.path.join(resumed, "meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(resumed, "results.json")) as f:
+            res_resumed = json.load(f)
+        prefix = np.ascontiguousarray(frames[:, :RESUME_STEPS // PAPER_SAVE])
+        same = bool(np.array_equal(
+            torch_paper_scale_langevin.segment_frames(resumed, n_resumed), prefix))
+        same_scores = all(res_resumed[k] == v for k, v in
+                          torch_paper_scale_langevin.score_frames(prefix).items())
+        ok = (killed_in_third and yielded and third == 0 and same and same_scores
+              and meta["resumes"] == 2 and res_resumed["resumes"] == 2
+              and meta["segments_done"] == n_resumed)
+        out["paper_scale_resumed"] = dict(
+            wall_s=kill_wall, killed_rc=first.returncode, preempted_rc=second.returncode,
+            finished_rc=third, same_bits=same, resumes=meta["resumes"],
+            steps_per_s=res_resumed["steps_per_s"])
+        log(f"phase15 (a) its first {RESUME_STEPS} steps again in {n_resumed} segments of "
+            f"{RESUME_SEGMENT}, in three processes sharing one --out: SIGKILL during "
+            f"the third segment (rc {first.returncode}, coords_seg002 absent: "
+            f"{killed_in_third}), relaunched under TWOFORONE_PREEMPT_FLAG, the flag set once "
+            f"coords_seg002.npy existed: rc {second.returncode} (want 75) at the boundary "
+            f"(coords_seg003 absent: {yielded}), relaunched: rc {third}; frames equal the "
+            f"straight run's first {prefix.shape[1]} saves bit for bit: {same}; scores equal "
+            f"those of those frames: {same_scores}; meta resumes="
+            f"{meta['resumes']} (want 2) segments_done={meta['segments_done']}; wall_s="
+            f"{kill_wall:.2f} ok={ok}")
+        if not ok:
+            fail(f"phase15 (a): the killed and preempted run differs from the straight one or "
+                 f"broke the resume contract; last process's output:\n{tail}")
+        mark_a = time.perf_counter() - started
+
+        # ------------------------------------------------------------ (b)
+        frames_path = os.path.join(tmp, "paper_frames.npy")
+        np.save(frames_path, frames.reshape(-1, 10, 3))
+        rc, tail = run_script("torch_evaluate_fastfolders.py",
+                              ["--mol", "chignolin", "--samples", frames_path, "--out",
+                               os.path.join(tmp, "eval_ff"), "--no_plots"],
+                              os.path.join(tmp, "eval_ff.log"), env)
+        ff = {}
+        if rc == 0:
+            with open(os.path.join(tmp, "eval_ff", "results_chignolin.json")) as f:
+                ff = json.load(f)
+        ok = rc == 0 and set(ff) == set(FASTFOLDER_KEYS) and all_finite(ff)
+        out["evaluate_fastfolders"] = ff
+        log(f"phase15 (b) torch_evaluate_fastfolders.py --mol chignolin --no_plots on (a)'s "
+            f"{len(frames.reshape(-1, 10, 3))} frames: rc={rc} {json.dumps(ff)} ok={ok}")
+        if not ok:
+            fail(f"phase15 (b): the fast-folder evaluation failed:\n{tail}")
+
+        gd5, params5, _, _ = load_model(trained_dir("ala5"), "best", device=dev)
+        sample = gd5.make_fused_sample_fn(params5, ALA2_SAMPLES, kernel="auto", device=dev)
+        reset_counts()
+        iid = sample(torch.Generator(device=dev).manual_seed(0)).cpu().numpy()
+        got = add_counts()
+        samples_path = os.path.join(tmp, "ala5_iid.npy")
+        np.save(samples_path, iid)
+        rc, tail = run_script("torch_evaluate_ala2.py",
+                              ["--samples", samples_path, "--out", os.path.join(tmp, "eval_ala2"),
+                               "--no_plots"], os.path.join(tmp, "eval_ala2.log"), env)
+        ala2 = {}
+        if rc == 0:
+            with open(os.path.join(tmp, "eval_ala2", "results_ala2.json")) as f:
+                ala2 = json.load(f)
+        want = (gd5.timesteps, 0, 0, 0)
+        ok = (rc == 0 and set(ala2) == set(ALA2_KEYS) and all_finite(ala2) and got == want
+              and sample.kernel == "cl" and bool(np.isfinite(iid).all()))
+        out["evaluate_ala2"] = ala2
+        log(f"phase15 (b) {ALA2_SAMPLES} i.i.d. samples of the staged ala5 ({sample.kernel}, "
+            f"ancestral; launches_k1_fwd_bwd_k4={got}, want {want}), then "
+            f"torch_evaluate_ala2.py --no_plots: rc={rc} {json.dumps(ala2)}; not installed "
+            f"here: {absent}, and no script process could import jax, flax, optax or "
+            f"twoforone_tpu ok={ok}")
+        if not ok:
+            fail(f"phase15 (b): the alanine-dipeptide evaluation failed:\n{tail}")
+        mark_b = time.perf_counter() - started
+
+        # ------------------------------------------------------------ (c)
+        init_path = os.path.join(tmp, "chain20_init.npy")
+        np.save(init_path, chain_dataset(SWEEP_CHAINS, chain_control_components(20), seed=5)
+                .astype(np.float32))
+        sweep_args = ["--n_beads", "20", "--init", init_path, "--t", *map(str, SWEEP_T),
+                      "--chains", str(SWEEP_CHAINS), "--steps", str(SWEEP_STEPS),
+                      "--save_interval", str(SWEEP_SAVE), "--eval_samples",
+                      str(SWEEP_EVAL_SAMPLES), "--device", str(dev),
+                      "--out", os.path.join(tmp, "sweep.json")]
+        reset_counts()
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "sweep.log"), "w") as f, contextlib.redirect_stdout(f):
+            sweep, sweep_sps = torch_langevin_t_sweep.main(sweep_args)
+        wall = time.perf_counter() - t0
+        got = add_counts()
+        per_step = 3 * len(SWEEP_T) * SWEEP_STEPS
+        want = (0, per_step, per_step, 0)
+        ok = (got == want and set(sweep) == set(SWEEP_KEYS) and all_finite(sweep)
+              and set(sweep["t"]) == set(SWEEP_T)
+              and all(v["nonfinite_frac"] == 0.0 for v in sweep["t"].values()))
+        out["t_sweep"] = dict(sweep, t={str(k): v for k, v in sweep["t"].items()},
+                              steps_per_s={str(k): v for k, v in sweep_sps.items()},
+                              wall_s=wall, launches=got)
+        log(f"phase15 (c) torch_langevin_t_sweep.py on the staged chain20, t={SWEEP_T}, "
+            f"{SWEEP_CHAINS} chains x {SWEEP_STEPS} steps, eval_samples {SWEEP_EVAL_SAMPLES} "
+            f"(cut from 500 chains x 20 000 steps, 50 000): wall_s={wall:.2f} steps_per_s="
+            f"{json.dumps(out['t_sweep']['steps_per_s'])} launches_k1_fwd_bwd_k4={got} "
+            f"(want {want}: 3 of K2 and 3 of K3 a step) results={json.dumps(out['t_sweep']['t'])} "
+            f"tic_js_floor={sweep['tic_js_floor']:.4f} ok={ok}")
+        if not ok:
+            fail("phase15 (c): the t-sweep launched K2/K3 another number of times than 3 a "
+                 "step, or its results are incomplete")
+
+        quality_args = ["--n_beads", "20", "--steps", *map(str, QUALITY_STEPS),
+                        "--num_samples", str(QUALITY_SAMPLES), "--device", str(dev),
+                        "--out", os.path.join(tmp, "quality.json")]
+        reset_counts()
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "quality.log"), "w") as f, contextlib.redirect_stdout(f):
+            quality = torch_ddim_quality.main(quality_args)
+        wall = time.perf_counter() - t0
+        got = add_counts()
+        ok = (got == (0, 0, 0, 0) and set(quality) == set(QUALITY_KEYS) and all_finite(quality))
+        out["ddim_quality"] = dict(quality, wall_s=wall)
+        log(f"phase15 (c) torch_ddim_quality.py on the staged chain20, --steps "
+            f"{' '.join(map(str, QUALITY_STEPS))}, {QUALITY_SAMPLES} samples (cut from 100 000; "
+            f"the plain network, no kernel): wall_s={wall:.2f} launches={got} "
+            f"results={json.dumps(quality)} ok={ok}")
+        if not ok:
+            fail("phase15 (c): the quality ladder launched a kernel or its results are "
+                 "incomplete")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.path.remove(os.path.join(repo, "scripts"))
+    total = time.perf_counter() - started
+    out["phase_s"] = dict(a=mark_a, b=mark_b - mark_a, c=total - mark_b, total=total)
+    log(f"phase15 seconds: (a) {mark_a:.1f}, (b) {mark_b - mark_a:.1f}, (c) "
+        f"{total - mark_b:.1f}, total {total:.1f} (budget {PHASE15_BUDGET_S})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2832,6 +3172,10 @@ def main():
     for name, count in zip(("k1", "fwd", "bwd", "k4"), installed_launches):
         launches[name] += count
     mark("phase14")
+
+    # ---------------------------------------------------------- phase 15
+    workflows = workflow_phase(reset_counts, add_counts, dev, sps[100])
+    mark("phase15")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -2845,6 +3189,7 @@ def main():
     log("mesh " + json.dumps(mesh_numbers))
     log("bf16 " + json.dumps(bf16_numbers))
     log("installed " + json.dumps(installed))
+    log("workflows " + json.dumps(workflows))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

@@ -103,10 +103,20 @@ def _imported_modules(path):
             yield node.module
 
 
+# The port's reproduction workflows: they run on the card, which has no JAX.
+WORKFLOW_SCRIPTS = (
+    "_torch_workflow_common.py", "torch_evaluate_ala2.py", "torch_evaluate_fastfolders.py",
+    "torch_paper_scale_langevin.py", "torch_chain10_control.py", "torch_langevin_t_sweep.py",
+    "torch_ddim_quality.py", "torch_dynamics_analysis.py", "torch_positive_control.py",
+    "torch_export_torch_checkpoint.py",
+)
+
+
 def test_port_imports_no_jax_flax_or_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     files.append(os.path.join(REPO, "scripts", "torch_profile_langevin.py"))
+    files += [os.path.join(REPO, "scripts", name) for name in WORKFLOW_SCRIPTS]
     assert len(files) > 15
     scanned = {os.path.relpath(f, PORT) for f in files}
     for module in ("cli/sample.py", "data/pdb.py", "data/datasets.py", "data/synthetic.py",
