@@ -50,7 +50,11 @@ models, with bench.py's settings:
   SIGKILLed, preempted and resumed (the fused force kernel), the evaluation
   scripts on its frames and on alanine-dipeptide samples, the noise-level
   sweep on trp-cage (the attention-core path) and the strided-sampler
-  quality ladder.
+  quality ladder;
+- the JAX package's compiled loops: every Langevin run above replays a
+  captured step from a CUDA graph, and every sampling closure of
+  the plain network a captured reverse step; the last phase holds each
+  graphed path against the eager loop bit for bit and times both.
 
 Phases (any failure exits non-zero):
 
@@ -175,6 +179,23 @@ Phases (any failure exits non-zero):
    ``torch_langevin_t_sweep.py`` on the staged chain20 (two t, 256 chains x
    2000 steps; K2 and K3 three times a step) and ``torch_ddim_quality.py``
    (DDIM-100 and DDIM-20, 4096 samples, the plain network: no launch).
+16. the CUDA graphs: (a) 200 steps (a save every 50) graphed against the
+   eager loop (the simulation's private ``_graphs`` set to None), bit for
+   bit in x, v, the frames, forces, kinetic energies and the generator
+   state, with launches equal to the steps: chignolin ``cl``, ``always``
+   and overdamped ``cl`` at 100 chains, trp-cage ``clx`` and ``never`` at
+   256, villin ``never`` (float32, bfloat16, the tempering ramp) and
+   ``always`` at 100; a graphed chignolin run stopped at its midpoint and
+   resumed through ``state``/``load_state`` equals the straight one; (b)
+   chignolin ``kernel="xla"`` at batch 1024, graphed against eager bit for
+   bit: DDIM-20 and DPM-Solver++(2M)-20 over two calls of one closure, the
+   1000-step ancestral chain once; (c) rates, printed and not held:
+   graphed and eager steps/s of villin and protein G ``never`` (float32,
+   bfloat16) and ``always`` at 100 chains, trp-cage ``never`` at 1000,
+   chignolin ``cl`` at 100 and 1000, graphed villin ``never``'s device idle
+   share under ``torch.profiler``, and chignolin DDIM-100 samples/s on the
+   plain network; and the device memory of every graphed path's first call
+   (its static buffers and its graphs' pool).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -183,6 +204,7 @@ prints no result.
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -325,7 +347,7 @@ CLI_RUNS = (
 )
 # Launches of (K1, K2, K3, K4) for one score evaluation on each path.
 PER_CALL = {"cl": (1, 0, 0, 0), "clx": (0, 3, 3, 0), "always": (0, 0, 0, 1),
-            "packed": (0, 0, 0, 1)}
+            "packed": (0, 0, 0, 1), "never": (0, 0, 0, 0)}
 
 
 def log(msg):
@@ -466,16 +488,16 @@ def start_state(chains, n, norm_factor):
 
 
 def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev, mesh=None,
-             bf16=False):
+             bf16=False, friction=1.0):
     """bench.py's Langevin settings (dt 2e-3 ps, masses 12, friction 1,
     restraint_k 50, max_force 1e3) from a seeded random start; ``mesh``
-    shards the chains over its ranks."""
+    shards the chains over its ranks; ``friction=None`` is overdamped."""
     from twoforone_torch.dynamics.langevin import LangevinDiffusion
 
     return LangevinDiffusion(
         gd, params, start_state(chains, spec["n"], gd.norm_factor), n_timesteps=n_timesteps,
         save_interval=save_interval, t=spec["t_noise"], temp_data=spec["temp"],
-        temp_sim=spec["temp"], dt=2e-3, masses=[12.0] * spec["n"], friction=1.0,
+        temp_sim=spec["temp"], dt=2e-3, masses=[12.0] * spec["n"], friction=friction,
         kb="consistent", random_seed=0, steps_per_chunk=1000, log=False, fused=fused,
         bf16=bf16, restraint_k=50.0, max_force=1e3, device=dev, mesh=mesh,
     )
@@ -484,7 +506,8 @@ def make_sim(gd, params, spec, chains, fused, n_timesteps, save_interval, dev, m
 def timed_run(ld, warmup, steps):
     """steps/s of ``steps`` Langevin steps after ``warmup`` steps; also
     whether every coordinate stayed finite."""
-    ld.sim.simulate(sub_interval=warmup)
+    if warmup:
+        ld.sim.simulate(sub_interval=warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     traj = ld.sim.simulate(sub_interval=steps)
@@ -2446,6 +2469,256 @@ def workflow_phase(reset_counts, add_counts, dev, phase3_sps):
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+# The JAX package's compiled loops as CUDA graphs: on the card every Langevin
+# run above replays a captured step, and every plain-network sampling
+# closure a captured reverse step. Here each is held against the eager loop
+# (reached through the private ``_graphs`` attribute set to None) bit for
+# bit, both are timed, and the device memory of each graphed path's first
+# call (its static buffers and its graphs' pool) is read.
+GRAPH_BITS_STEPS = 200
+GRAPH_BITS_SAVE = 50
+# (spec, fused, chains, bf16, friction, reference temperature): every force
+# path, both dynamics and the tempering ramp.
+GRAPH_BITS_RUNS = (
+    (CHIGNOLIN, "cl", 100, False, 1.0, None),
+    (CHIGNOLIN, "always", 100, False, 1.0, None),
+    (CHIGNOLIN, "cl", 100, False, None, None),
+    (TRP_CAGE, "clx", 256, False, 1.0, None),
+    (TRP_CAGE, "never", 256, False, 1.0, None),
+    (VILLIN, "never", 100, False, 1.0, None),
+    (VILLIN, "never", 100, True, 1.0, None),
+    (VILLIN, "always", 100, False, 1.0, None),
+    (VILLIN, "never", 100, False, 1.0, 2 * VILLIN["temp"]),
+)
+GRAPH_SAMPLER_BATCH = 1024
+GRAPH_SAMPLERS = (("ddim20", dict(sample_steps=20), 2),
+                  ("dpm2m20", dict(sample_steps=20, solver="dpm2m"), 2),
+                  ("ancestral1000", dict(sample_steps=None), 1))  # (name, sampler, calls)
+GRAPH_WARMUP = 20  # steps before a rate is timed, and the runs' save interval
+GRAPH_TIMED = {True: 400, False: 100}  # steps timed graphed / eager
+# (spec, fused, chains, bf16): the path gate's question at villin and
+# protein-G width, trp-cage's plain network, chignolin's kernel.
+GRAPH_RATE_RUNS = (
+    *((spec, mode, 100, bf16) for spec in (VILLIN, PROTEIN_G)
+      for mode, bf16 in (("never", False), ("never", True), ("always", False))),
+    (TRP_CAGE, "never", 1000, False),
+    (CHIGNOLIN, "cl", 100, False),
+    (CHIGNOLIN, "cl", 1000, False),
+)
+GRAPH_DDIM_STEPS = 100
+
+
+def first_call_memory(fn):
+    """(``fn()``, its seconds, MiB that the device holds more after it): the
+    first call of a graphed loop, whose static buffers and graph pool stay
+    while the loop lives. Unreachable loops of earlier runs are collected
+    and the allocator's free cache is emptied before and after (outside the
+    seconds), so ``reserved`` counts the segments kept (a live graph's pool
+    is not released) and ``allocated`` the tensors that are live."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0, a0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, seconds, {"reserved": (torch.cuda.memory_reserved() - r0) / 2**20,
+                             "allocated": (torch.cuda.memory_allocated() - a0) / 2**20}
+
+
+def first_call(fn, graphed):
+    """:func:`first_call_memory` of a graphed loop's first call; an eager
+    one's seconds alone (its memory None)."""
+    if graphed:
+        return first_call_memory(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, None
+
+
+def graph_phase(reset_counts, add_counts, dev):
+    """Phase 16; returns the numbers it measured."""
+    from twoforone_torch.utils.artifacts import load_ema_params
+
+    models = {}
+
+    def model(spec):
+        if spec["name"] not in models:
+            models[spec["name"]] = make_gd(spec), load_ema_params(spec["name"])
+        return models[spec["name"]]
+
+    def tag(spec, mode, chains, bf16=False, friction=1.0, ref_temp=None):
+        return (f"{spec['label']}_{mode}{'_bf16' if bf16 else ''}_{chains}"
+                f"{'_overdamped' if friction is None else ''}{'_ramp' if ref_temp else ''}")
+
+    out = {}
+    memory = out["first_graphed_call_memory_mib"] = {}
+    log(f"phase16 cuts: {GRAPH_BITS_STEPS} steps a bit comparison (a save every "
+        f"{GRAPH_BITS_SAVE}), {GRAPH_TIMED[True]} / {GRAPH_TIMED[False]} steps timed graphed / "
+        f"eager after {GRAPH_WARMUP}")
+    # ------------------------------------------------------------ (a)
+    def bits_run(spec, mode, chains, bf16, friction, ref_temp, graphed, steps=GRAPH_BITS_STEPS,
+                 state=None):
+        g, w = model(spec)
+        ld = make_sim(g, w, spec, chains, mode, GRAPH_BITS_STEPS, GRAPH_BITS_SAVE, dev,
+                      bf16=bf16, friction=friction)
+        if not graphed:
+            ld.sim._graphs = None
+        if state is not None:
+            ld.sim.load_state(state)
+        ld.sim.save_forces = True
+        ref_beta = None if ref_temp is None else ld.kb_inv / ref_temp
+        reset_counts()
+        coords, _, mem = first_call(
+            lambda: ld.sim.simulate(sub_interval=steps, reference_beta=ref_beta), graphed)
+        got = add_counts()
+        st = ld.sim.state
+        run = dict(coords=coords, forces=ld.sim.simulated_forces, ke=ld.sim.kinetic_energies,
+                   x=st["x"], v=st["v"], key=st["key"])
+        return run, got, st, (ld.sim._graphs and list(ld.sim._graphs.graphs)), mem
+
+    def same(a, b):
+        return all((a[k] is None and b[k] is None) or np.array_equal(a[k], b[k]) for k in a)
+
+    for spec, mode, chains, bf16, friction, ref_temp in GRAPH_BITS_RUNS:
+        name = tag(spec, mode, chains, bf16, friction, ref_temp)
+        want = tuple(c * GRAPH_BITS_STEPS for c in PER_CALL[mode])
+        eager, got_e, _, _, _ = bits_run(spec, mode, chains, bf16, friction, ref_temp, False)
+        graphed, got_g, _, keys, mem = bits_run(spec, mode, chains, bf16, friction, ref_temp,
+                                                True)
+        memory[name] = mem
+        bits = same(graphed, eager)
+        finite = bool(np.isfinite(graphed["coords"]).all())
+        ok = bits and finite and got_e == got_g == want and bool(keys)
+        log(f"phase16 (a) {name} steps={GRAPH_BITS_STEPS} save_interval={GRAPH_BITS_SAVE} "
+            f"graphed_vs_eager_same_bits(x, v, frames, forces, ke, generator)={bits} "
+            f"graphs={keys} launches_k1_fwd_bwd_k4 graphed={got_g} eager={got_e} "
+            f"(want {want}) finite={finite} first_graphed_call_memory_mib={mem} ok={ok}")
+        if not ok:
+            fail(f"phase16 (a) {name}: the graphed run differs from the eager one, or its "
+                 "launches from the steps")
+    # A graphed run stopped at its midpoint and resumed from its state in a
+    # fresh simulation, against the straight graphed run.
+    spec, mode, chains = CHIGNOLIN, "cl", 100
+    straight, _, _, _, _ = bits_run(spec, mode, chains, False, 1.0, None, True)
+    half = GRAPH_BITS_STEPS // 2
+    first, _, st, _, _ = bits_run(spec, mode, chains, False, 1.0, None, True, steps=half)
+    rest, got, _, _, _ = bits_run(spec, mode, chains, False, 1.0, None, True, steps=half,
+                                  state=st)
+    joined = {k: np.concatenate([first[k], rest[k]], axis=1) for k in ("coords", "forces", "ke")}
+    bits = (same(joined, {k: straight[k] for k in joined})
+            and same({k: rest[k] for k in ("x", "v", "key")},
+                     {k: straight[k] for k in ("x", "v", "key")}))
+    ok = bits and got == (half, 0, 0, 0)
+    log(f"phase16 (a) {tag(spec, mode, chains)} stopped at step {half} and resumed through "
+        f"state/load_state: same_bits_as_straight_graphed_run={bits} "
+        f"launches_after_resume={got} ok={ok}")
+    if not ok:
+        fail("phase16 (a): a resumed graphed run differs from the straight one")
+
+    # ------------------------------------------------------------ (b)
+    g, w = model(CHIGNOLIN)
+    for name, kw, calls in GRAPH_SAMPLERS:
+        samples, times, gens = {}, {}, {}
+        for graphed in (False, True):
+            fn = g.make_fused_sample_fn(w, GRAPH_SAMPLER_BATCH, kernel="xla", device=dev, **kw)
+            if not graphed:
+                fn._graphs = None
+            gen = torch.Generator(dev).manual_seed(11)
+            reset_counts()
+            first, first_s, mem = first_call(lambda: fn(gen), graphed)
+            t0 = time.perf_counter()
+            samples[graphed] = [first] + [fn(gen) for _ in range(calls - 1)]
+            torch.cuda.synchronize()
+            times[graphed] = first_s + time.perf_counter() - t0
+            if graphed:
+                memory[f"chignolin_{name}_xla_{GRAPH_SAMPLER_BATCH}"] = mem
+            gens[graphed] = gen.get_state()
+            if add_counts() != (0, 0, 0, 0):
+                fail(f"phase16 (b) {name}: a kernel ran in the plain sampler")
+            graphs = fn._graphs and list(fn._graphs.graphs)
+        bits = (all(torch.equal(a, b) for a, b in zip(samples[True], samples[False]))
+                and torch.equal(gens[True], gens[False]))
+        finite = all(bool(torch.isfinite(s).all()) for s in samples[True])
+        ok = bits and finite and bool(graphs)
+        log(f"phase16 (b) chignolin {name} kernel=xla batch={GRAPH_SAMPLER_BATCH} calls={calls} "
+            f"graphed_vs_eager_same_bits={bits} graphs={len(graphs or ())} finite={finite} "
+            f"seconds graphed={times[True]:.3f} eager={times[False]:.3f} (the graphed first "
+            f"call captures) first_graphed_call_memory_mib="
+            f"{memory[f'chignolin_{name}_xla_{GRAPH_SAMPLER_BATCH}']} ok={ok}")
+        if not ok:
+            fail(f"phase16 (b) {name}: the graphed chain's samples differ from the eager one's")
+
+    # ------------------------------------------------------------ (c)
+    rates = out["steps_per_s"] = {}
+    for spec, mode, chains, bf16 in GRAPH_RATE_RUNS:
+        name = tag(spec, mode, chains, bf16)
+        g, w = model(spec)
+        for graphed in (False, True):
+            ld = make_sim(g, w, spec, chains, mode, 10_000_000, GRAPH_WARMUP, dev, bf16=bf16)
+            if not graphed:
+                ld.sim._graphs = None
+            steps = GRAPH_TIMED[graphed]
+            reset_counts()
+            # graphed: warm-up and capture
+            _, first_s, mem = first_call(lambda: ld.sim.simulate(sub_interval=GRAPH_WARMUP),
+                                         graphed)
+            if graphed:
+                memory.setdefault(name, mem)
+            rate, finite = timed_run(ld, 0, steps)
+            got = add_counts()
+            want = tuple(c * (GRAPH_WARMUP + steps) for c in PER_CALL[mode])
+            if got != want or not finite:
+                fail(f"phase16 (c) {name}: launches {got} (want {want}), finite={finite}")
+            which = "graphed" if graphed else "eager"
+            rates.setdefault(name, {}).update({which: rate, f"first_{GRAPH_WARMUP}_steps_s_{which}":
+                                               first_s})
+            del ld
+        r = rates[name]
+        r["graphed_over_eager"] = r["graphed"] / r["eager"]
+        log(f"phase16 (c) {name} steps_per_s graphed={r['graphed']:.2f} eager={r['eager']:.2f} "
+            f"ratio={r['graphed_over_eager']:.2f} first {GRAPH_WARMUP} steps of a new simulation "
+            f"(graphed: with the capture) graphed_s="
+            f"{r[f'first_{GRAPH_WARMUP}_steps_s_graphed']:.3f} "
+            f"eager_s={r[f'first_{GRAPH_WARMUP}_steps_s_eager']:.3f}")
+    g, w = model(VILLIN)
+    ld = make_sim(g, w, VILLIN, 100, "never", 10_000_000, GRAPH_WARMUP, dev)
+    ld.sim.simulate(sub_interval=GRAPH_WARMUP)
+    wall_ms, busy_ms = wall_and_busy_ms(lambda: ld.sim.simulate(sub_interval=GRAPH_WARMUP))
+    out["villin_never_100_profiled"] = dict(
+        steps=GRAPH_WARMUP, wall_ms_per_step=wall_ms / GRAPH_WARMUP,
+        device_busy_ms_per_step=busy_ms / GRAPH_WARMUP, device_idle_share=1.0 - busy_ms / wall_ms)
+    log(f"phase16 (c) villin_never_100 graphed under torch.profiler: "
+        + json.dumps(out["villin_never_100_profiled"]))
+    if busy_ms > wall_ms:
+        fail("phase16 (c): the profiler's device time exceeds the wall time of the run")
+    del ld
+    sps = out["chignolin_ddim100_xla_samples_per_s"] = {}
+    g, w = model(CHIGNOLIN)
+    for graphed in (False, True):
+        fn = g.make_fused_sample_fn(w, GRAPH_SAMPLER_BATCH, kernel="xla",
+                                    sample_steps=GRAPH_DDIM_STEPS, device=dev)
+        if not graphed:
+            fn._graphs = None
+        fn(torch.Generator(dev).manual_seed(0))  # the graphed closure captures here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(torch.Generator(dev).manual_seed(1))
+        torch.cuda.synchronize()
+        sps["graphed" if graphed else "eager"] = GRAPH_SAMPLER_BATCH / (time.perf_counter() - t0)
+        del fn
+    log(f"phase16 (c) chignolin DDIM-{GRAPH_DDIM_STEPS} kernel=xla batch={GRAPH_SAMPLER_BATCH} "
+        f"samples_per_s graphed={sps['graphed']:.2f} eager={sps['eager']:.2f}")
+    log(f"phase16 memory of a graphed path's first call, MiB: {json.dumps(memory)}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3176,6 +3449,10 @@ def main():
     # ---------------------------------------------------------- phase 15
     workflows = workflow_phase(reset_counts, add_counts, dev, sps[100])
     mark("phase15")
+
+    # ---------------------------------------------------------- phase 16
+    graph_numbers = graph_phase(reset_counts, add_counts, dev)
+    mark("phase16")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -3190,6 +3467,7 @@ def main():
     log("bf16 " + json.dumps(bf16_numbers))
     log("installed " + json.dumps(installed))
     log("workflows " + json.dumps(workflows))
+    log("graphs " + json.dumps(graph_numbers))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

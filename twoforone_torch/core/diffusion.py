@@ -12,6 +12,9 @@ What differs from the JAX module:
 
 - a reverse chain is a Python loop under ``torch.no_grad()`` (the score
   function opens ``enable_grad`` itself where it differentiates an energy);
+  on the card the sampling closures of the plain network replay each step
+  from a CUDA graph instead, the counterpart of the JAX package's jitted
+  ``lax.scan``;
 - random numbers come from an explicit ``torch.Generator`` on the run's
   device, or from a noise hook ``noise(tag, shape)`` with ``tag = "init"``
   for the starting state and the integer timestep for each step, so that a
@@ -46,6 +49,7 @@ import torch
 from twoforone_torch.core.schedules import DiffusionBuffers, extract, make_buffers
 from twoforone_torch.ops.geometry import center_zero
 from twoforone_torch.parallel.mesh import entry_device, gather, local_rows, mesh_size
+from twoforone_torch.utils.cuda_graph import graphs_for
 from twoforone_torch.utils.device import resolve_device
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x, t_norm) -> eps_hat
@@ -233,12 +237,19 @@ def ddim_step(buf: DiffusionBuffers, score_fn: ScoreFn, x, tau: int, tau_prev: i
     """
     b = x.shape[0]
     t = torch.full((b,), int(tau), dtype=torch.long, device=x.device)
-    x0, eps, abar_t = _x0_eps(buf, score_fn, x, t, objective, clip_x0, int(tau))
-    last = tau_prev < 0
+    t_prev = None if tau_prev < 0 else torch.full_like(t, int(tau_prev))
+    return _ddim_update(buf, score_fn, x, t, t_prev, noise, eta, objective, clip_x0, int(tau))
+
+
+def _ddim_update(buf, score_fn, x, t, t_prev, noise, eta, objective, clip_x0, t_scalar=None):
+    """:func:`ddim_step` at the timestep tensors ``t`` and ``t_prev`` ((B,)
+    long; ``t_prev`` None is the final hop)."""
+    x0, eps, abar_t = _x0_eps(buf, score_fn, x, t, objective, clip_x0, t_scalar)
+    last = t_prev is None
     if last:
         abar_prev = torch.ones_like(abar_t)
     else:
-        abar_prev = extract(buf.alphas_cumprod, torch.full_like(t, int(tau_prev)))
+        abar_prev = extract(buf.alphas_cumprod, t_prev)
     sigma = eta * torch.sqrt(
         ((1.0 - abar_prev) / (1.0 - abar_t)).clamp(min=0.0)
         * (1.0 - abar_t / abar_prev).clamp(min=0.0)
@@ -283,36 +294,148 @@ def dpm_solver_pp_2m_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, gener
     buf, _, mol = _chain_start(buf, shape, generator, noise, device, mesh)
     taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
     b = mol.shape[0]
-
-    def log_snr_half(abar):  # lambda = log(alpha/sigma) = 0.5 log(abar/(1-abar))
-        return 0.5 * (torch.log(abar) - torch.log1p(-abar))
-
     x0_prev = lam_prev = None
     for tau, tau_prev in zip(taus.tolist(), prev_taus.tolist()):
         t = torch.full((b,), tau, dtype=torch.long, device=mol.device)
-        x0_s, _, _ = _x0_eps(buf, score_fn, mol, t, objective, clip_x0, tau)
-        abar_s = buf.alphas_cumprod[tau]
-        lam_s = log_snr_half(abar_s)
-        sigma_s = torch.sqrt(1.0 - abar_s)
-        last = tau_prev < 0
-        if last:
-            mol = x0_s
-        else:
-            abar_t = buf.alphas_cumprod[tau_prev]
-            alpha_t = torch.sqrt(abar_t)
-            sigma_t = torch.sqrt(1.0 - abar_t)
-            h = log_snr_half(abar_t) - lam_s
-            # exp(-h) = (alpha_s * sigma_t) / (sigma_s * alpha_t)
-            exp_neg_h = torch.sqrt(abar_s) * sigma_t / (sigma_s * alpha_t)
-            if x0_prev is None:
-                d = x0_s
-            else:
-                coef = 1.0 / (2.0 * ((lam_s - lam_prev) / h))
-                d = (1.0 + coef) * x0_s - coef * x0_prev
-            mol = (sigma_t / sigma_s) * mol - alpha_t * (exp_neg_h - 1.0) * d
+        abar_t = None if tau_prev < 0 else buf.alphas_cumprod[tau_prev]
+        mol, x0_prev, lam_prev = _dpm2m_update(buf, score_fn, mol, t, buf.alphas_cumprod[tau],
+                                               abar_t, x0_prev, lam_prev, objective, clip_x0,
+                                               tau)
         mol = center_zero(mol.clamp(-1000.0, 1000.0))
-        x0_prev, lam_prev = x0_s, lam_s
     return mol
+
+
+def _log_snr_half(abar):  # lambda = log(alpha/sigma) = 0.5 log(abar/(1-abar))
+    return 0.5 * (torch.log(abar) - torch.log1p(-abar))
+
+
+def _dpm2m_update(buf, score_fn, x, t, abar_s, abar_t, x0_prev, lam_prev, objective, clip_x0,
+                  t_scalar=None):
+    """One DPM-Solver++(2M) update at the timestep tensor ``t`` from
+    ``abar_s`` to ``abar_t`` (0-d; None is the final hop), before the clamp:
+    returns (x, the x0 estimate, lambda_s) for the next step, whose first
+    order update has ``x0_prev`` None."""
+    x0_s, _, _ = _x0_eps(buf, score_fn, x, t, objective, clip_x0, t_scalar)
+    lam_s = _log_snr_half(abar_s)
+    sigma_s = torch.sqrt(1.0 - abar_s)
+    if abar_t is None:
+        return x0_s, x0_s, lam_s
+    alpha_t = torch.sqrt(abar_t)
+    sigma_t = torch.sqrt(1.0 - abar_t)
+    h = _log_snr_half(abar_t) - lam_s
+    # exp(-h) = (alpha_s * sigma_t) / (sigma_s * alpha_t)
+    exp_neg_h = torch.sqrt(abar_s) * sigma_t / (sigma_s * alpha_t)
+    if x0_prev is None:
+        d = x0_s
+    else:
+        coef = 1.0 / (2.0 * ((lam_s - lam_prev) / h))
+        d = (1.0 + coef) * x0_s - coef * x0_prev
+    return (sigma_t / sigma_s) * x - alpha_t * (exp_neg_h - 1.0) * d, x0_s, lam_s
+
+
+# ---------------------------------------------------------------------------
+# Reverse chains replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+# The counterparts of the JAX package's jitted ``lax.scan`` chains for the
+# plain network on the card. One reverse step is captured with its timesteps
+# in 0-d device scalars, so one graph serves every step of a chain and of the
+# later calls of its sampling closure (the final hop of the strided chains,
+# and the first DPM-Solver++(2M) update, have graphs of their own). The draws
+# stay outside the graph, made by the chain's draw function into a static
+# buffer before each replay, so the generator, the noise hook and a mesh's
+# rows are the eager loop's, and so are the bits.
+
+def _chain_buffers(graphs, mol):
+    """The static state of a graphed chain: x (set to ``mol``), the step's
+    noise and its timestep."""
+    x = graphs.buffer("x", mol.shape).copy_(mol)
+    return x, graphs.buffer("noise", mol.shape), graphs.buffer("t", (), torch.long)
+
+
+def _at(values, t):
+    """``values[t]`` for a 0-d long device tensor ``t``, as a 0-d tensor,
+    without reading ``t`` back to the host."""
+    return values.index_select(0, t.view(1)).view(())
+
+
+@torch.no_grad()
+def _p_sample_loop_graphed(graphs, buf, score_fn, shape, generator=None,
+                           objective: str = "pred_noise", noise=None, device="cuda", mesh=None):
+    """:func:`p_sample_loop` with each step replayed from ``graphs`` (a
+    :class:`~twoforone_torch.utils.cuda_graph.StepGraphs`)."""
+    buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
+    x, z, t = _chain_buffers(graphs, mol)
+    b = x.shape[0]
+
+    def step():
+        out = p_sample(buf, score_fn, x, t.expand(b).contiguous(), z, objective)
+        x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
+
+    for t_scalar in range(buf.num_timesteps - 1, -1, -1):
+        z.copy_(draw(t_scalar, tuple(shape)))
+        t.fill_(t_scalar)
+        graphs(("ancestral", x.shape), step)
+    return x.clone()
+
+
+@torch.no_grad()
+def _ddim_sample_loop_graphed(graphs, buf, score_fn, shape, generator=None,
+                              sample_steps: int = 100, eta: float = 0.0,
+                              objective: str = "pred_noise", clip_x0: Optional[float] = 10.0,
+                              noise=None, device="cuda", mesh=None):
+    """:func:`ddim_sample_loop` with each step replayed from ``graphs``."""
+    buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
+    x, z, t = _chain_buffers(graphs, mol)
+    t_prev = graphs.buffer("t_prev", (), torch.long)
+    b = x.shape[0]
+
+    def step(last):
+        def run():
+            tp = None if last else t_prev.expand(b).contiguous()
+            out = _ddim_update(buf, score_fn, x, t.expand(b).contiguous(), tp, z, eta,
+                               objective, clip_x0)
+            x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
+        return run
+
+    taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
+    for tau, tau_prev in zip(taus.tolist(), prev_taus.tolist()):
+        z.copy_(draw(tau, tuple(shape)))
+        t.fill_(tau)
+        t_prev.fill_(max(tau_prev, 0))
+        graphs(("ddim", tau_prev < 0, x.shape), step(tau_prev < 0))
+    return x.clone()
+
+
+@torch.no_grad()
+def _dpm_solver_pp_2m_loop_graphed(graphs, buf, score_fn, shape, generator=None,
+                                   sample_steps: int = 100, objective: str = "pred_noise",
+                                   clip_x0: Optional[float] = 10.0, noise=None, device="cuda",
+                                   mesh=None):
+    """:func:`dpm_solver_pp_2m_loop` with each step replayed from ``graphs``;
+    the previous x0 estimate and lambda live in static buffers too."""
+    buf, _, mol = _chain_start(buf, shape, generator, noise, device, mesh)
+    x, _, t = _chain_buffers(graphs, mol)
+    t_prev = graphs.buffer("t_prev", (), torch.long)
+    x0_prev, lam_prev = graphs.buffer("x0_prev", x.shape), graphs.buffer("lam_prev", ())
+    b = x.shape[0]
+
+    def step(first, last):
+        def run():
+            abar_t = None if last else _at(buf.alphas_cumprod, t_prev)
+            out, x0_s, lam_s = _dpm2m_update(
+                buf, score_fn, x, t.expand(b).contiguous(), _at(buf.alphas_cumprod, t), abar_t,
+                None if first else x0_prev, lam_prev, objective, clip_x0)
+            x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
+            x0_prev.copy_(x0_s)
+            lam_prev.copy_(lam_s)
+        return run
+
+    taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
+    for i, (tau, tau_prev) in enumerate(zip(taus.tolist(), prev_taus.tolist())):
+        t.fill_(tau)
+        t_prev.fill_(max(tau_prev, 0))
+        graphs(("dpm2m", i == 0, tau_prev < 0, x.shape), step(i == 0, tau_prev < 0))
+    return x.clone()
 
 
 def p_losses(buf: DiffusionBuffers, score_fn: ScoreFn, x_start, t, noise,
@@ -462,17 +585,34 @@ class GaussianDiffusion:
         return loss, {"kl_at_T": kl}
 
     # -- sampling ------------------------------------------------------------
-    def _sample_loop_fn(self, sample_steps: Optional[int], eta: float, solver: str = "ddim"):
+    def _sample_loop_fn(self, sample_steps: Optional[int], eta: float, solver: str = "ddim",
+                        graphed: bool = False):
         """Reverse-chain loop selector: the full ancestral chain by default,
         a strided chain when ``sample_steps`` is given. ``solver``: "ddim" or
-        "dpm2m" (deterministic; ``eta`` does not apply)."""
+        "dpm2m" (deterministic; ``eta`` does not apply). ``graphed`` gives the
+        loop's graphed form, which takes a ``StepGraphs`` first."""
         if sample_steps is None:
-            return p_sample_loop
+            return _p_sample_loop_graphed if graphed else p_sample_loop
         if solver == "ddim":
-            return partial(ddim_sample_loop, sample_steps=sample_steps, eta=eta)
+            return partial(_ddim_sample_loop_graphed if graphed else ddim_sample_loop,
+                           sample_steps=sample_steps, eta=eta)
         if solver == "dpm2m":
-            return partial(dpm_solver_pp_2m_loop, sample_steps=sample_steps)
+            return partial(_dpm_solver_pp_2m_loop_graphed if graphed else dpm_solver_pp_2m_loop,
+                           sample_steps=sample_steps)
         raise ValueError(f"unknown solver {solver!r} (ddim | dpm2m)")
+
+    def reverse_chain(self, graphs, score_fn: ScoreFn, shape, generator=None,
+                      sample_steps: Optional[int] = None, eta: float = 0.0,
+                      solver: str = "ddim", noise=None, device="cuda", mesh=None):
+        """One reverse chain of ``score_fn`` in normalised units, the loop
+        :meth:`_sample_loop_fn` selects: each step replayed from ``graphs``
+        (a :class:`~twoforone_torch.utils.cuda_graph.StepGraphs`), or the
+        eager loop where ``graphs`` is None."""
+        loop = self._sample_loop_fn(sample_steps, eta, solver, graphed=graphs is not None)
+        if graphs is not None:
+            loop = partial(loop, graphs)
+        return loop(self.buffers_on(device), score_fn, shape, generator,
+                    objective=self.objective, noise=noise, device=device, mesh=mesh)
 
     def sample(self, params, batch_size: int, generator=None,
                sample_steps: Optional[int] = None, eta: float = 0.0, solver: str = "ddim",
@@ -481,18 +621,20 @@ class GaussianDiffusion:
         (batch, N, 3) on ``device``. ``generator`` must live on that device.
         ``mesh``: each rank computes its rows of the batch and every rank
         gets all of it, equal to the unsharded samples. ``bf16`` runs the
-        network in bfloat16 (the chain state stays float32)."""
-        return self.make_sample_fn(
-            params, batch_size, sample_steps=sample_steps, eta=eta, solver=solver,
-            bf16=bf16, device=device, mesh=mesh,
-        )(generator, noise=noise)
+        network in bfloat16 (the chain state stays float32). One call is
+        eager on the card too: a CUDA graph pays off over the steps of a
+        reusable closure (:meth:`make_sample_fn`)."""
+        return self._sampler(params, batch_size, "xla", sample_steps, eta, solver, device,
+                             mesh, bf16, graphed=False)(generator, noise=noise)
 
     def make_sample_fn(self, params, batch_size: int, sample_steps: Optional[int] = None,
                        eta: float = 0.0, solver: str = "ddim", bf16: bool = False,
                        device="cuda", mesh=None):
         """Sampling closure of the plain network with the weights bound once:
         ``sample(generator=None, noise=None) -> (batch, N, 3)``, as
-        :meth:`sample` draws them (``bf16`` likewise)."""
+        :meth:`sample` draws them (``bf16`` likewise). On the card each
+        reverse step is replayed from a CUDA graph, captured at the closure's
+        first call (see :meth:`make_fused_sample_fn`)."""
         return self._sampler(params, batch_size, "xla", sample_steps, eta, solver, device,
                              mesh, bf16)
 
@@ -537,12 +679,18 @@ class GaussianDiffusion:
         paths draw only their own rows from a generator seeded from the
         caller's and the rank, as the JAX package folds the device index
         into the key. Their samples are i.i.d. either way.
+
+        On the card "xla" replays each reverse step from a CUDA graph that
+        the closure captures at its first call and keeps (one memory pool
+        for its step variants), as the JAX package jits the chain; it gives
+        the eager loop's samples bit for bit. The fused paths stay eager:
+        their kernel is most of a step, and "clx" graphs its evaluation.
         """
         return self._sampler(params, batch_size, kernel, sample_steps, eta, solver, device,
                              mesh, bf16=False)
 
     def _sampler(self, params, batch_size, kernel, sample_steps, eta, solver, device, mesh,
-                 bf16):
+                 bf16, graphed=True):
         device = entry_device(device, mesh)
         m = self.model
         n_ranks = mesh_size(mesh)
@@ -581,22 +729,25 @@ class GaussianDiffusion:
         # The fused paths take one t per call: the loops hand it over as a
         # host float, so no score call waits for the device.
         score_fn.scalar_t = kernel != "xla"
-        loop = self._sample_loop_fn(sample_steps, eta, solver)
+        self._sample_loop_fn(sample_steps, eta, solver)  # an unknown solver raises here
+        chain = partial(self.reverse_chain, sample_steps=sample_steps, eta=eta, solver=solver,
+                        device=device)
         shape = (batch_size, self.num_atoms, 3)
         per_rank = kernel != "xla" and n_ranks > 1
 
         def sample(generator=None, noise=None):
             if per_rank and noise is None:
-                mol = loop(self.buffers, score_fn, (batch_size // n_ranks, *shape[1:]),
-                           _rank_generator(generator, mesh), objective=self.objective,
-                           device=device)
+                mol = chain(None, score_fn, (batch_size // n_ranks, *shape[1:]),
+                            _rank_generator(generator, mesh))
             else:
-                mol = loop(self.buffers, score_fn, shape, generator, objective=self.objective,
-                           noise=noise, device=device, mesh=mesh)
+                mol = chain(sample._graphs, score_fn, shape, generator, noise=noise, mesh=mesh)
             return gather(mol * self.norm_factor, mesh)
 
         sample.kernel = kernel
         sample.score_fn = score_fn
+        # The reverse step's CUDA graphs; None runs the eager loop (the CPU's,
+        # and the card's only where a comparison sets it so).
+        sample._graphs = graphs_for(device) if graphed and kernel == "xla" else None
         return sample
 
 

@@ -3,13 +3,20 @@
 - The BAOA(F)B step (one force evaluation per step) and the
   overdamped/Brownian step are plain tensor functions that take the noise as
   an argument.
-- :class:`LangevinSimulation` drives them in a Python loop of steps on the
-  device (the JAX package's ``lax.scan``/``fori_loop`` chunk). Saved frames
-  stay on the device and are copied to the host once per chunk of
-  ``steps_per_chunk`` steps.
+- :class:`LangevinSimulation` drives them over chunks of
+  ``steps_per_chunk`` steps (the JAX package's ``lax.scan``/``fori_loop``
+  chunk). Saved frames stay on the device and are copied to the host once
+  per chunk. On the card the deterministic part of a step (centring, force,
+  clamp, restraint, update) is captured once in a CUDA graph of one step
+  and replayed (:class:`~twoforone_torch.utils.cuda_graph.StepGraphs`): the
+  counterpart of the JAX package's compiled save period. A CPU run is the
+  same step called from Python.
 - Noise comes from a ``torch.Generator`` on the simulation's device, one
   draw of the coordinates' shape per step, so a trajectory does not depend
-  on the chunking. The generator state is part of :attr:`state`, so a run
+  on the chunking. The draws stay outside the graph: each replay reads its
+  step's noise, and its inverse temperature, from static buffers filled
+  just before it, so a graphed run draws the numbers an eager one draws.
+  The generator state is part of :attr:`state`, so a run
   resumed with :meth:`load_state` continues the uninterrupted trajectory.
 - Parallel chains are the leading batch axis. With a ``mesh``
   (:mod:`twoforone_torch.parallel.mesh`) rank r of W holds the chains
@@ -32,6 +39,7 @@ import torch
 
 from twoforone_torch.ops.geometry import center_zero
 from twoforone_torch.parallel.mesh import entry_device, gather, local_rows
+from twoforone_torch.utils.cuda_graph import graphs_for
 
 ForceFn = Callable[[torch.Tensor], tuple]  # x -> (potential, forces)
 
@@ -54,7 +62,18 @@ def baoab_step(x, v, forces, noise, dt, masses, vscale, noisescale, beta):
 
 def overdamped_step(x, forces, noise, dtau, beta):
     """Brownian dynamics step: x += F * dtau + sqrt(2 dtau / beta) * dW."""
-    return x + forces * dtau + float(np.sqrt(2.0 * dtau / beta)) * noise
+    return _overdamped_update(x, forces, noise, dtau, float(_noise_coefficient(dtau, beta)))
+
+
+def _noise_coefficient(dtau, beta):
+    """sqrt(2 dtau / beta) on the host in float64 (``beta`` a float or a
+    float32 array); the float32 product rounds it once, as a Python float
+    operand or a float32 device scalar alike."""
+    return np.sqrt(2.0 * dtau / np.asarray(beta, np.float64))
+
+
+def _overdamped_update(x, forces, noise, dtau, noise_coef):
+    return x + forces * dtau + noise_coef * noise
 
 
 @dataclass
@@ -168,6 +187,9 @@ class LangevinSimulation:
 
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0 if self.random_seed is None else self.random_seed)
+        # The step's CUDA graphs on the card; None runs the eager loop (the
+        # CPU's, and the card's only where a comparison sets it so).
+        self._graphs = graphs_for(self.device)
         self._state = None  # (x, v) device tensors; populated lazily
         self._t = 0  # global step counter (resumable)
         self._npy_file_index = 0
@@ -213,6 +235,21 @@ class LangevinSimulation:
     def one_step(self, x, v, beta, noise):
         """Centre, evaluate forces, and advance one step with the given
         standard-normal ``noise``. Returns (x, v, potential, forces)."""
+        return self._advance(x, v, self._step_coefficients(beta), noise)
+
+    def _step_coefficients(self, beta):
+        """What a step reads of the inverse temperature ``beta`` (a float, or
+        the float32 array of a run's steps): beta itself for BAOA(F)B, the
+        noise coefficient sqrt(2 dtau / beta) in overdamped dynamics."""
+        if self.friction is not None:
+            return beta
+        coef = _noise_coefficient(self._dtau, beta)
+        return float(coef) if np.ndim(coef) == 0 else coef.astype(np.float32)
+
+    def _advance(self, x, v, coef, noise):
+        """:meth:`one_step` with ``coef`` from :meth:`_step_coefficients`, a
+        float or a 0-d float32 tensor (the graph's), which give the same
+        float32 products."""
         x = center_zero(x)
         potential, forces = self.force_fn(x)
         if self.max_force is not None:
@@ -222,12 +259,36 @@ class LangevinSimulation:
         if self.friction is not None:
             x_new, v_new = baoab_step(
                 x, v, forces, noise, self.dt, self._masses, self.vscale,
-                self.noisescale, beta,
+                self.noisescale, coef,
             )
         else:
-            x_new = overdamped_step(x, forces, noise, self._dtau, beta)
+            x_new = _overdamped_update(x, forces, noise, self._dtau, coef)
             v_new = v
         return x_new, v_new, potential, forces
+
+    def _graphed_step(self, x, v):
+        """The graphed form of a step: ``advance(coef) -> (potential,
+        forces)`` draws the step's noise into a static buffer, copies its
+        coefficient (a 0-d float32 device tensor) into another and replays
+        the graph of the step, which advances the static ``x`` and ``v`` in
+        place (the first call is the eager warm-up, then the capture)."""
+        graphs = self._graphs
+        noise = graphs.buffer("noise", x.shape)
+        coef = graphs.buffer("coef", ())
+
+        def step():
+            x_new, v_new, potential, forces = self._advance(x, v, coef, noise)
+            x.copy_(x_new)
+            if v is not None:
+                v.copy_(v_new)
+            return potential, forces
+
+        def advance(step_coef):
+            noise.copy_(self._draw_noise(x))
+            coef.copy_(step_coef)
+            return graphs(("step", tuple(x.shape)), step)
+
+        return advance
 
     # ------------------------------------------------------------- driving
     @torch.no_grad()
@@ -282,21 +343,33 @@ class LangevinSimulation:
                   if self.friction is not None else None)
 
         x, v = self._state
+        graphs = self._graphs
+        keep = torch.clone if graphs is not None else (lambda t: t)  # eager steps make new tensors
+        if graphs is not None:
+            # The static state of the graph: self._state gets copies at the
+            # end, so no caller holds a tensor that a replay overwrites.
+            coefs_all = torch.as_tensor(self._step_coefficients(betas_all), device=self.device)
+            x = graphs.buffer("x", x.shape).copy_(x)
+            v = None if v is None else graphs.buffer("v", v.shape).copy_(v)
+            advance = self._graphed_step(x, v)
         done = save_idx = export_start = 0
         while done < remaining:
             chunk = min(steps_per_chunk, remaining - done)
             saved = {"coords": [], "forces": [], "potential": [], "kinetic_energy": []}
             for i in range(chunk):
-                noise = self._draw_noise(x)
-                x, v, potential, forces = self.one_step(
-                    x, v, float(betas_all[done + i]), noise
-                )
+                if graphs is not None:
+                    potential, forces = advance(coefs_all[done + i])
+                else:
+                    noise = self._draw_noise(x)
+                    x, v, potential, forces = self.one_step(
+                        x, v, float(betas_all[done + i]), noise
+                    )
                 if (i + 1) % self.save_interval == 0:
-                    saved["coords"].append(x)
+                    saved["coords"].append(keep(x))
                     if self.save_forces:
-                        saved["forces"].append(forces)
+                        saved["forces"].append(keep(forces))
                     if self.save_potential:
-                        saved["potential"].append(potential)
+                        saved["potential"].append(keep(potential))
                     if ke_out is not None:
                         saved["kinetic_energy"].append(
                             0.5 * torch.sum(self._masses[:, None] * v**2, dim=(1, 2))
@@ -337,7 +410,7 @@ class LangevinSimulation:
             self._export_npy(coords_out, forces_out, potential_out, ke_out,
                              export_start, save_idx)
 
-        self._state = (x, v)
+        self._state = (keep(x), None if v is None else keep(v))
         # (saves, sims, beads, 3) -> (sims, saves, beads, 3)
         self.simulated_coords = coords_out.swapaxes(0, 1)
         self.simulated_forces = None if forces_out is None else forces_out.swapaxes(0, 1)

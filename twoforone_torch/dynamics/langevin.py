@@ -15,7 +15,9 @@ kernel pair inside an eager energy (:mod:`twoforone_torch.ops.fused_score_clx`),
 ``GraphTransformer`` with autograd, and ``"auto"`` picks by the JAX package's
 gate (:func:`resolve_fused_mode`), which never picks ``"always"``: a model
 with another edge configuration than the production one runs the plain
-network unless the caller asks for the kernel.
+network unless the caller asks for the kernel. On the card every path runs
+inside the simulation's captured step
+(:class:`~twoforone_torch.dynamics.integrators.LangevinSimulation`).
 
 With a ``mesh`` (:mod:`twoforone_torch.parallel.mesh`) each rank runs its
 share of the chains through its own kernel call, and ``"auto"`` sees the
@@ -94,7 +96,9 @@ def make_diffusion_force_fn(diffusion, params, t: int, kbt_inv: float,
     elif mode == "clx":
         from twoforone_torch.ops.fused_score_clx import make_clx_force_fn
 
-        eps_fn = make_clx_force_fn(model, params, t_norm, device)
+        # Eager: on the card the evaluation runs inside the simulation's
+        # captured step, where an evaluation graph of its own cannot be made.
+        eps_fn = make_clx_force_fn(model, params, t_norm, device, graphed=False)
     elif mode == "never":
         score_fn = diffusion.score_fn(params, device, bf16=bf16)
 

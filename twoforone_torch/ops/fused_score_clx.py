@@ -37,6 +37,7 @@ import torch
 
 from twoforone_torch.ops.attention_cl_core import cl_attention_core
 from twoforone_torch.ops.fused_score_cl import VERIFIED_MAX_N, augment_params_cl, eps_hat_cl
+from twoforone_torch.utils.cuda_graph import StepGraphs
 from twoforone_torch.utils.device import float32_products
 
 CLX_MIN_CHAINS = 256
@@ -70,69 +71,39 @@ def auto_fused_path(model, n_chains, device, other_edges: str = "plain") -> str:
 
 class GraphedEvaluation:
     """``(x, t) -> eager(x, t)`` on CUDA tensors, through one CUDA graph per
-    input shape.
+    input shape (:class:`~twoforone_torch.utils.cuda_graph.StepGraphs`).
 
-    The first call of a shape runs ``eager`` on a side stream (the warm-up:
-    it builds and loads the kernel library, sets the ctypes argument types
-    and creates the cuBLAS workspace, none of which may happen inside a
-    capture) and returns that result; it then captures one evaluation on the
-    same stream into a ``torch.cuda.CUDAGraph``, reading x and t from static
-    buffers. Later calls of that shape copy x and t into the buffers and
-    replay. ``graphs`` maps each captured (B, N) to its graph. Each graph
-    keeps a memory pool of its own (one evaluation's activations at that
-    shape) until this object is dropped, so a caller that passes many batch
-    sizes holds one pool for each.
+    Each call copies x and t into the static buffers of its shape and runs
+    the graph of that shape: the first call of a shape is the eager warm-up
+    and the capture, later calls replay. ``graphs`` maps each captured
+    (B, N) to its graph. The graphs share one memory pool (one evaluation's
+    activations at the largest shape) until this object is dropped.
     """
 
     def __init__(self, eager, device):
         self.eager = eager
-        self.device = torch.device(device)
-        self.graphs = {}
+        self.steps = StepGraphs(device)
+        self.graphs = self.steps.graphs
 
-    def _capture(self, x, t):
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            first = self.eager(x, t)
-        first.record_stream(torch.cuda.current_stream(self.device))
-        static_x = x.detach().clone()
+    def __call__(self, x, t):
+        shape = tuple(x.shape)
+        static_x = self.steps.buffer("x", shape)
         # Runtime t: a Python float would be captured as a constant, and every
         # replay would then use the first call's t. It lives in a 0-d device
         # tensor that each call fills before the replay.
-        static_t = torch.zeros((), dtype=torch.float32, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        # Launch counters: the wrappers count once while the launches are
-        # recorded, but nothing runs then. Those counts are taken back here
-        # and added at every replay instead (3 and 3 for three layers).
-        before = (cl_attention_core.launches_fwd, cl_attention_core.launches_bwd)
-        with torch.cuda.graph(graph, stream=stream):
-            static_out = self.eager(static_x, static_t)
-        per_call = (cl_attention_core.launches_fwd - before[0],
-                    cl_attention_core.launches_bwd - before[1])
-        cl_attention_core.launches_fwd, cl_attention_core.launches_bwd = before
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.graphs[tuple(x.shape)] = (graph, static_x, static_t, static_out, per_call)
-        return first
-
-    def __call__(self, x, t):
-        entry = self.graphs.get(tuple(x.shape))
-        if entry is None:
-            return self._capture(x, t)
-        graph, static_x, static_t, static_out, per_call = entry
+        static_t = self.steps.buffer("t", ())
         static_x.copy_(x)
         if torch.is_tensor(t):
             static_t.copy_(t)
         else:
             static_t.fill_(float(t))
-        graph.replay()
-        cl_attention_core.launches_fwd += per_call[0]
-        cl_attention_core.launches_bwd += per_call[1]
-        # The next replay overwrites static_out. The callers in this package
-        # consume a force before they ask for the next one, but the function
-        # is public, so it returns a copy (one (B, N, 3) copy, 240 KB at 1000
-        # chains of trp-cage) rather than a tensor that changes under its
-        # holder.
-        return static_out.clone()
+        out = self.steps(shape, lambda: self.eager(static_x, static_t))
+        # The next replay overwrites the graph's output. The callers in this
+        # package consume a force before they ask for the next one, but the
+        # function is public, so it returns a copy (one (B, N, 3) copy, 240 KB
+        # at 1000 chains of trp-cage) rather than a tensor that changes under
+        # its holder.
+        return out.clone()
 
 
 def make_clx_force_fn(model, params, t_norm=None, device="cuda", graphed=True):

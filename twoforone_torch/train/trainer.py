@@ -53,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from twoforone_torch.core.diffusion import GaussianDiffusion, p_sample_loop, sample_timesteps
+from twoforone_torch.core.diffusion import GaussianDiffusion, sample_timesteps
 from twoforone_torch.data.molecules import MASS_ALA2, MASS_FASTFOLDER, temp_dict
 from twoforone_torch.dynamics.langevin import LangevinDiffusion
 from twoforone_torch.evaluate.evaluators import Evaluator, sample_from_model
@@ -71,6 +71,7 @@ from twoforone_torch.parallel.mesh import (
 from twoforone_torch.train.ema import EMAConfig, ema_update, init_ema
 from twoforone_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from twoforone_torch.utils.convert import params_from_jax, params_to_jax
+from twoforone_torch.utils.cuda_graph import graphs_for
 from twoforone_torch.utils.device import float32_products
 from twoforone_torch.utils.preempt import exit_if_preempted
 
@@ -202,6 +203,9 @@ class Trainer:
         self.net.load_state_dict(params_from_jax(init_params(diffusion_model.model, config.seed)))
         replicate(self.net, mesh)
         self.ema = init_ema(self.net)
+        # The CUDA graph of sample()'s reverse step on the card, captured once:
+        # the EMA weights it reads are updated and loaded in place.
+        self._sample_graphs = graphs_for(self.device)
         self.optimizer, self.lr_schedule = make_optimizer(self.net, config)
         self.ema_cfg = EMAConfig(beta=config.ema_decay)
 
@@ -361,7 +365,9 @@ class Trainer:
         """Sample from the EMA weights with the plain network's full
         ancestral chain, in batches of the training batch size, truncated to
         ``num_samples``: (num_samples, N, 3) numpy, the same on every rank
-        (each rank computes its rows of a batch, then they are gathered)."""
+        (each rank computes its rows of a batch, then they are gathered).
+        On the card the batches replay one captured reverse step, as the
+        sampling closures do (the same bits as the eager chain)."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
 
@@ -370,9 +376,9 @@ class Trainer:
 
         def fn(b, gen):
             with float32_products():
-                mol = p_sample_loop(self.gd.buffers, score_fn, (b, self.gd.num_atoms, 3), gen,
-                                    objective=self.gd.objective, device=self.device,
-                                    mesh=self.mesh)
+                mol = self.gd.reverse_chain(self._sample_graphs, score_fn,
+                                            (b, self.gd.num_atoms, 3), gen, device=self.device,
+                                            mesh=self.mesh)
             return gather(mol * self.gd.norm_factor, self.mesh)
 
         return sample_from_model(fn, num_samples, self.batch_size, generator)
