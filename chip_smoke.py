@@ -53,8 +53,12 @@ models, with bench.py's settings:
   quality ladder;
 - the JAX package's compiled loops: every Langevin run above replays a
   captured step from a CUDA graph, and every sampling closure of
-  the plain network a captured reverse step; the last phase holds each
-  graphed path against the eager loop bit for bit and times both.
+  the plain network a captured reverse step; phase 16 holds each
+  graphed path against the eager loop bit for bit and times both;
+- the JAX package's jitted training programs: every training step above
+  replays its captured halves (gradients, then update) and every loss
+  evaluation a captured batch; the last phase holds them against the eager
+  step bit for bit and times both.
 
 Phases (any failure exits non-zero):
 
@@ -92,10 +96,11 @@ Phases (any failure exits non-zero):
 10. training: (a) ``Trainer.train`` at chain10's published configuration
    (losses finite and falling, KL-at-T, checkpoints, the EMA read back bit
    for bit, no kernel launched, the final samples scored on the golden
-   chignolin references), then the step timed and under ``torch.profiler``
-   (idle share, top kernels); (b) ``cli.sample`` on (a)'s results directory
-   through the fused force kernel (path, launches, finiteness) and the kernel
-   against its plain version on those weights; (c) ``cli.train`` on a
+   chignolin references), then the step timed, graphed and eager, the
+   graphed step under ``torch.profiler`` (idle share, top kernels) and the
+   products of eager steps counted; (b) ``cli.sample`` on (a)'s results
+   directory through the fused force kernel (path, launches, finiteness)
+   and the kernel against its plain version on those weights; (c) ``cli.train`` on a
    synthetic protein-G data folder at chain56's widths (files, empty results:
    protein G has no metric);
 11. the positive control's path: (a) chignolin (K1) and trp-cage (clx) on
@@ -112,18 +117,20 @@ Phases (any failure exits non-zero):
    network; (f) ``kabsch_rmsd`` on the card against the host. The stages are
    timed by ``PhaseTimer``;
 12. the multi-GPU layer: (a) a world of 1 over NCCL on the card: chignolin
-   Langevin at 1000 chains through K1 with phase 3's seed and steps, and two
-   Trainer steps at chain10's published configuration (batch 512), each
-   bit for bit equal to the run without a mesh (steps/s beside phase 3's);
+   Langevin at 1000 chains through K1 with phase 3's seed and steps, and 12
+   Trainer steps at chain10's published configuration (batch 512) replayed
+   from the step's graphs, each bit for bit equal to the run without a mesh
+   (the meshless graphed steps equal to eager ones; steps/s beside phase 3's);
    (b) two ranks (this script with ``--mesh-rank``) sharing the card over
    gloo, since NCCL refuses two ranks on one device: the gathered
    1000-chain chignolin trajectory (500 chains a rank through K1) bit for
    bit equal to (a)'s, K1 launches equal to the steps on each rank;
    trp-cage at 1000 chains resolving clx on each rank, held against the
    single-process clx run after 10 steps; DDIM-100 at batch 4096 through K1
-   (launches, finiteness, centre of mass, spread); two training steps (the
-   weights bit for bit equal across the ranks, each step's gradient against
-   (a)'s); then ``python -m twoforone_torch.cli.sample`` under two ranks
+   (launches, finiteness, centre of mass, spread); 12 training steps, graphed
+   and eager (graphed equal to eager on each rank, the weights bit for bit
+   equal across the ranks, the first two steps' gradients against (a)'s);
+   then ``python -m twoforone_torch.cli.sample`` under two ranks
    with ``--parallel_sim 999`` (padded to 1000, 999 chains' frames out, the
    files written by rank 0 alone). Every rank has a time limit; a rank that
    fails or hangs fails the phase. The two-rank rates are two processes on
@@ -196,6 +203,21 @@ Phases (any failure exits non-zero):
    share under ``torch.profiler``, and chignolin DDIM-100 samples/s on the
    plain network; and the device memory of every graphed path's first call
    (its static buffers and its graphs' pool).
+17. the training step's CUDA graphs at chain10's published configuration
+   (batch 512) on phase 10's synthetic frames, graphed against eager (the
+   trainer's private ``_step_graphs`` / ``_eval_graphs`` set to None): (a)
+   bit for bit in every step's loss, KL-at-T and KL max, the weights, EMA,
+   Adam's ``mu``/``nu`` and count, gradients and generator state: 120
+   float32 steps (past the EMA's copy phase into its ramp, with its skipped
+   calls), 40 with ``gradient_accumulate_every`` 2, 40 of a bfloat16 model,
+   one ``_train_chunk`` of 50; no kernel launched; (b) saved at step 60,
+   trained on, loaded back into the captured trainer and into a fresh one,
+   continued to 120: equal to the straight run; (c) ``eval_loss`` graphed
+   against eager, two calls; (d) rates, printed and not held: graphed and
+   eager steps/s, float32 and bfloat16 (50 steps after 20), kernels a step,
+   device-busy ms and idle share over 20 steps under ``torch.profiler``,
+   and the memory of the first calls of the trainer's three graphs (the
+   step, the evaluation, ``sample``'s reverse step).
 
 Earlier lines carry the numbers (one ``{"kernels": [...]}`` JSON line among
 them); the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -281,7 +303,8 @@ AGREE_BATCH = 256  # the 10-step and DDIM-20 comparisons of kernel and plain pat
 # chains (MESH_RANKS is not the card count: the machine has one GPU).
 MESH_RANKS = 2
 MESH_CLI_CHAINS = 999  # --parallel_sim of the 2-rank CLI run, padded to 1000
-MESH_TRAIN_STEPS = 2
+MESH_TRAIN_STEPS = 12  # both EMA variants of the update graph replay (calls 0 and 10)
+MESH_GRAD_STEPS = 2  # the steps whose gradients are held against one rank's
 MESH_TRAIN_FRAMES = 4000
 MESH_TRP_STEPS = 10
 MESH_RANK_TIMEOUT_S = 300  # a 2-rank world, start-up and kernel loads included
@@ -677,6 +700,7 @@ TRAIN_STEPS = 200
 TRAIN_WARMUP = 20
 TRAIN_TIMED = 50
 TRAIN_PROFILED = 20
+TRAIN_FLOP_STEPS = 5  # eager steps whose products the profiler counts
 TRAIN_CLI_RUN = ["--gen_mode", "langevin", "--fused", "auto", "--parallel_sim", "100",
                  "--batch_size_gen", "100", "--n_timesteps", "200", "--save_interval", "100",
                  "--sample_steps", "20"]
@@ -687,6 +711,19 @@ PROTEIN_G_EVAL = 20  # one evaluation, which saves the last checkpoint
 # evaluation's and the final one) run the plain network eagerly, one score
 # call a step; 200 keeps KL-at-T ~4e-6 on its data.
 PROTEIN_G_DIFFUSION_STEPS = 200
+
+
+def timed_steps(trainer, it, gen, warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
+    """ms a training step: ``warmup`` steps (a graphed trainer's first call
+    captures), then ``timed`` steps on the host clock, synchronized."""
+    for _ in range(warmup):
+        trainer._train_step(next(it), gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        trainer._train_step(next(it), gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / timed
 
 
 def training_phase(reset_counts, add_counts, dev):
@@ -789,16 +826,8 @@ def training_phase(reset_counts, add_counts, dev):
 
         it = batch_iterator(sets[0].data, cfg.batch_size, seed=1)
         gen = torch.Generator(dev).manual_seed(5)
-        for _ in range(TRAIN_WARMUP):
-            trainer._train_step(next(it), gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_TIMED):
-            trainer._train_step(next(it), gen)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     with_flops=True) as prof:
+        step_ms = timed_steps(trainer, it, gen)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(TRAIN_PROFILED):
                 trainer._train_step(next(it), gen)
@@ -812,11 +841,20 @@ def training_phase(reset_counts, add_counts, dev):
                 n_kernels += 1
         busy_ms = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        graphs, trainer._step_graphs = trainer._step_graphs, None
+        eager_ms = timed_steps(trainer, it, gen)
         # The profiler's count of the products (matrix multiplies), the bulk
-        # of a step's arithmetic; elementwise work is not counted.
-        flops = sum(e.flops for e in prof.key_averages()) / TRAIN_PROFILED
+        # of a step's arithmetic; elementwise work is not counted. It counts
+        # the operators the host runs, so it is read from eager steps (a
+        # replay runs none).
+        with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+            for _ in range(TRAIN_FLOP_STEPS):
+                trainer._train_step(next(it), gen)
+        flops = sum(e.flops for e in prof.key_averages()) / TRAIN_FLOP_STEPS
+        trainer._step_graphs = graphs
         out["chain10_step"] = dict(
             ms_per_step=step_ms, steps_per_s=1e3 / step_ms, batch=cfg.batch_size,
+            eager_ms_per_step=eager_ms, eager_steps_per_s=1e3 / eager_ms,
             gflop_per_step=flops / 1e9, bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
             profiled_ms_per_step=profiled_ms / TRAIN_PROFILED,
             device_busy_ms_per_step=busy_ms / TRAIN_PROFILED,
@@ -824,13 +862,15 @@ def training_phase(reset_counts, add_counts, dev):
             kernels_per_step=n_kernels / TRAIN_PROFILED,
             top_kernels_ms_per_step={k[:70]: v / TRAIN_PROFILED for k, v in top})
         log(f"phase10 (a) chignolin training step, batch {cfg.batch_size}, after "
-            f"{TRAIN_WARMUP} warm-up steps: ms_per_step={step_ms:.4f} "
-            f"steps_per_s={1e3 / step_ms:.2f} gflop_per_step={flops / 1e9:.2f} "
+            f"{TRAIN_WARMUP} warm-up steps, replayed from its CUDA graphs: "
+            f"ms_per_step={step_ms:.4f} steps_per_s={1e3 / step_ms:.2f} (eager: "
+            f"ms_per_step={eager_ms:.4f} steps_per_s={1e3 / eager_ms:.2f}) "
+            f"gflop_per_step={flops / 1e9:.2f} "
             f"(the profiler's count of the products) "
             f"fp32_bound_ms={flops / PEAK_FP32_FLOPS * 1e3:.4f}; "
-            f"torch.profiler over {TRAIN_PROFILED} steps: "
+            f"torch.profiler over {TRAIN_PROFILED} graphed steps: "
             + json.dumps({k: v for k, v in out["chain10_step"].items()
-                          if k not in ("ms_per_step", "steps_per_s")}))
+                          if "ms_per_step" not in k and "steps_per_s" not in k}))
 
         # ------------------------------------------------------------ (b)
         seen = {}
@@ -1551,12 +1591,16 @@ def mesh_trainer(dev, folder, mesh=None):
     return trainer, batches
 
 
-def mesh_train_steps(trainer, batches):
+def mesh_train_steps(trainer, batches, graphed=True):
     """MESH_TRAIN_STEPS steps from the training loop's generator seed, each
-    rank on its rows of the global batch. Returns the weights and the EMA
-    after, and each step's gradient (the mean over the global batch)."""
+    rank on its rows of the global batch: replayed from the trainer's CUDA
+    graphs, or eager (``graphed=False``: the private ``_step_graphs`` set to
+    None). Returns the weights and the EMA after, and each step's gradient
+    (the mean over the global batch)."""
     from twoforone_torch.parallel.mesh import local_rows
 
+    if not graphed:
+        trainer._step_graphs = None
     gen = torch.Generator(trainer.device).manual_seed(trainer.config.seed + 1)
     rows = local_rows(len(batches[0]), trainer.mesh)
     grads = []
@@ -1565,6 +1609,14 @@ def mesh_train_steps(trainer, batches):
         grads.append({n: p.grad.cpu() for n, p in trainer.net.named_parameters()})
     return ({k: v.cpu() for k, v in trainer.net.state_dict().items()},
             {k: v.cpu() for k, v in trainer.ema.state_dict().items()}, grads)
+
+
+def same_train_run(a, b):
+    """Whether two :func:`mesh_train_steps` results are equal bit for bit."""
+    (wa, ea, ga), (wb, eb, gb) = a, b
+    return (all(torch.equal(wa[k], wb[k]) for k in wb)
+            and all(torch.equal(ea[k], eb[k]) for k in eb) and len(ga) == len(gb)
+            and all(torch.equal(x[k], y[k]) for x, y in zip(ga, gb) for k in y))
 
 
 def rank_command(*args):
@@ -1622,9 +1674,11 @@ def mesh_rank_main(rank, port, folder, device):
                ddim_samples=samples.cpu())
     out["counts"]["ddim"] = kernel_counts()
 
-    trainer, batches = mesh_trainer(dev, os.path.join(folder, f"train{rank}"), mesh)
     zero_counts()
-    out["weights"], out["ema"], out["grads"] = mesh_train_steps(trainer, batches)
+    for graphed, key in ((True, ""), (False, "eager_")):
+        trainer, batches = mesh_trainer(dev, os.path.join(folder, f"train{rank}{key}"), mesh)
+        out[f"{key}weights"], out[f"{key}ema"], out[f"{key}grads"] = mesh_train_steps(
+            trainer, batches, graphed)
     out["counts"]["train"] = kernel_counts()
     torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -1717,20 +1771,23 @@ def mesh_phase_in(tmp, reset_counts, add_counts, dev, phase3_sps):
         fail("phase12 (a): the world of 1 differs from the run without a mesh")
     del ld
 
-    trainer, batches = mesh_trainer(dev, os.path.join(tmp, "plain"))
-    ref_w, ref_ema, ref_grads = mesh_train_steps(trainer, batches)
-    trainer, _ = mesh_trainer(dev, os.path.join(tmp, "mesh"), mesh)
     reset_counts()
-    w_a, ema_a, grads_a = mesh_train_steps(trainer, batches)
+    runs = {}
+    for name, use_mesh, graphed in (("graphed", None, True), ("eager", None, False),
+                                    ("mesh", mesh, True)):
+        trainer, batches = mesh_trainer(dev, os.path.join(tmp, name), use_mesh)
+        runs[name] = mesh_train_steps(trainer, batches, graphed)
     got = add_counts()
-    same = all(torch.equal(w_a[k], ref_w[k]) for k in ref_w) and all(
-        torch.equal(ema_a[k], ref_ema[k]) for k in ref_ema) and all(
-        torch.equal(g[k], r[k]) for g, r in zip(grads_a, ref_grads) for k in r)
+    same = same_train_run(runs["mesh"], runs["graphed"])
+    graphed_eager = same_train_run(runs["graphed"], runs["eager"])
+    w_a, ema_a, grads_a = runs["mesh"]
     log(f"phase12 (a) {MESH_TRAIN_STEPS} Trainer steps at chain10's published configuration "
-        f"(batch {trainer.batch_size}) with the mesh: weights_and_ema_bitwise_equal={same} "
-        f"launches={got}")
-    if not same or got != (0, 0, 0, 0):
-        fail("phase12 (a): training with the world of 1 differs from training without a mesh")
+        f"(batch {trainer.batch_size}), replayed from the step's CUDA graphs, with the mesh: "
+        f"weights_ema_and_gradients_bitwise_equal_to_the_meshless_graphed_run={same} "
+        f"meshless_graphed_equal_to_eager={graphed_eager} launches={got}")
+    if not (same and graphed_eager) or got != (0, 0, 0, 0):
+        fail("phase12 (a): training with the world of 1 differs from training without a mesh, "
+             "or the graphed steps from the eager ones")
     del trainer
     dist.destroy_process_group()
 
@@ -1811,6 +1868,9 @@ def mesh_phase_in(tmp, reset_counts, add_counts, dev, phase3_sps):
 
     across = all(torch.equal(res[key][k], first[key][k]) for res in ranks
                  for key in ("weights", "ema") for k in first[key])
+    graphed_eager = all(same_train_run(
+        (res["weights"], res["ema"], res["grads"]),
+        (res["eager_weights"], res["eager_ema"], res["eager_grads"])) for res in ranks)
 
     def worst(got, ref, floor=0.0):
         """The largest distance over the leaves, each over the larger of its
@@ -1818,19 +1878,25 @@ def mesh_phase_in(tmp, reset_counts, add_counts, dev, phase3_sps):
         return max((float((got[k] - ref[k]).abs().max()
                           / max(float(ref[k].abs().max()), floor, 1e-30)), k) for k in ref)
 
-    grad_worst, grad_leaf = max(
-        worst(g, r, 1e-2 * max(float(v.abs().max()) for v in r.values()))
-        for g, r in zip(first["grads"], grads_a))
+    grad_diffs = [worst(g, r, 1e-2 * max(float(v.abs().max()) for v in r.values()))
+                  for g, r in zip(first["grads"], grads_a)]
+    grad_worst, grad_leaf = max(grad_diffs[:MESH_GRAD_STEPS])
+    later_worst = max(grad_diffs[MESH_GRAD_STEPS:], default=(0.0, ""))
     weight_worst, weight_leaf = worst(first["weights"], w_a)
     counts = [res["counts"]["train"] for res in ranks]
-    ok = across and grad_worst <= TOL_MESH_TRAIN_REL and all(c == (0, 0, 0, 0) for c in counts)
-    log(f"phase12 (b) {MESH_TRAIN_STEPS} Trainer steps over {MESH_RANKS} ranks: "
-        f"weights_and_ema_bitwise_equal_across_ranks={across} "
-        f"worst_leaf_gradient_diff_vs_a={grad_worst:.3e} ({grad_leaf}) "
-        f"tol={TOL_MESH_TRAIN_REL} worst_leaf_weight_diff_vs_a_over_leaf_max={weight_worst:.3e} "
+    ok = (across and graphed_eager and grad_worst <= TOL_MESH_TRAIN_REL
+          and all(c == (0, 0, 0, 0) for c in counts))
+    log(f"phase12 (b) {MESH_TRAIN_STEPS} Trainer steps over {MESH_RANKS} ranks, replayed from "
+        f"the step's CUDA graphs: weights_and_ema_bitwise_equal_across_ranks={across} "
+        f"graphed_equal_to_eager_on_each_rank={graphed_eager} "
+        f"worst_leaf_gradient_diff_vs_a_first_{MESH_GRAD_STEPS}_steps={grad_worst:.3e} "
+        f"({grad_leaf}) tol={TOL_MESH_TRAIN_REL} later_steps={later_worst[0]:.3e} "
+        f"({later_worst[1]}; not held: the weights have parted) "
+        f"worst_leaf_weight_diff_vs_a_over_leaf_max={weight_worst:.3e} "
         f"({weight_leaf}; not held: Adam) launches_by_rank={counts} ok={ok}")
     if not ok:
-        fail("phase12 (b): 2-rank training steps differ across ranks or from one rank")
+        fail("phase12 (b): 2-rank training steps differ across ranks, from one rank, or "
+             "graphed from eager")
     out["b"] = dict(wall_s=wall, chignolin_steps_per_s_by_rank=rates,
                     ddim100_samples_per_s=DDIM_BATCH / ddim_s, trp_cage_max_diff=diff,
                     train_grad_worst_leaf_rel=grad_worst,
@@ -1922,19 +1988,22 @@ DIPEPTIDE_CONTROL_KEYS = (
 
 
 def wall_and_busy_ms(fn):
-    """(wall ms, device-busy ms) of one call of ``fn`` under
-    ``torch.profiler``: the kernels' summed device time against the wall."""
+    """(wall ms, device-busy ms, kernels) of one call of ``fn`` under
+    ``torch.profiler``: the kernels' summed device time against the wall.
+    It traces the device alone (an eager training step's thousands of host
+    operations would take the trace many seconds to read; a rehearsal on
+    the CPU traces the host)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    card = torch.cuda.is_available()
+    with profile(activities=[ProfilerActivity.CUDA if card else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(ev.device_time / 1e3 for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(ev, "is_user_annotation", False))
-    return wall_ms, busy_ms
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)]
+    return wall_ms, sum(ev.device_time / 1e3 for ev in kernels), len(kernels)
 
 
 def bead_cov(s):
@@ -1996,7 +2065,7 @@ def bf16_phase(reset_counts, add_counts, dev, train_sps):
             ld = make_sim(g, w, spec, BF16_CHAINS, "auto", 10_000_000, BF16_WARMUP, dev,
                           bf16=bf16)
             rates[bf16], finite = timed_run(ld, BF16_WARMUP, BF16_TIMED)
-            wall_ms, busy_ms = wall_and_busy_ms(
+            wall_ms, busy_ms, _ = wall_and_busy_ms(
                 lambda ld=ld: ld.sim.simulate(sub_interval=BF16_PROFILED))
             profiled[bf16] = dict(wall_ms_per_step=wall_ms / BF16_PROFILED,
                                   device_busy_ms_per_step=busy_ms / BF16_PROFILED,
@@ -2690,7 +2759,7 @@ def graph_phase(reset_counts, add_counts, dev):
     g, w = model(VILLIN)
     ld = make_sim(g, w, VILLIN, 100, "never", 10_000_000, GRAPH_WARMUP, dev)
     ld.sim.simulate(sub_interval=GRAPH_WARMUP)
-    wall_ms, busy_ms = wall_and_busy_ms(lambda: ld.sim.simulate(sub_interval=GRAPH_WARMUP))
+    wall_ms, busy_ms, _ = wall_and_busy_ms(lambda: ld.sim.simulate(sub_interval=GRAPH_WARMUP))
     out["villin_never_100_profiled"] = dict(
         steps=GRAPH_WARMUP, wall_ms_per_step=wall_ms / GRAPH_WARMUP,
         device_busy_ms_per_step=busy_ms / GRAPH_WARMUP, device_idle_share=1.0 - busy_ms / wall_ms)
@@ -2716,6 +2785,221 @@ def graph_phase(reset_counts, add_counts, dev):
     log(f"phase16 (c) chignolin DDIM-{GRAPH_DDIM_STEPS} kernel=xla batch={GRAPH_SAMPLER_BATCH} "
         f"samples_per_s graphed={sps['graphed']:.2f} eager={sps['eager']:.2f}")
     log(f"phase16 memory of a graphed path's first call, MiB: {json.dumps(memory)}")
+    return out
+
+
+
+# ------------------------------------------------------------------ phase 17
+# The JAX package's jitted training programs as CUDA graphs: a training step
+# replays its two captured halves (the gradients, then the update), a chunk
+# replays them K times, a loss evaluation replays one captured batch. Each is
+# held against the eager form (the private ``_step_graphs`` / ``_eval_graphs``
+# set to None) bit for bit at chain10's published configuration on phase
+# 10's synthetic frames, then both are timed and profiled, and the memory the
+# trainer's three graphs keep is read.
+TRAIN_BITS_STEPS = 120  # past the EMA's copy phase (update_after_step 100), into its ramp
+TRAIN_BITS_SHORT = 40  # gradient_accumulate_every 2, and a bf16 model
+TRAIN_RESUME_AT = 60
+TRAIN_RESUME_DRIFT = 20  # steps trained past the checkpoint before it is loaded back
+TRAIN_CHUNK = 50  # chain10's steps_per_host_loop
+TRAIN_EVAL_ITERS = 5
+
+
+def train_graph_phase(reset_counts, add_counts, dev):
+    """Phase 17; returns the numbers it measured."""
+    import shutil
+    import tempfile
+
+    from twoforone_torch.core.diffusion import GaussianDiffusion
+    from twoforone_torch.data.datasets import CGDataset
+    from twoforone_torch.data.molecules import FOLDED_PDB_DIR, Molecules
+    from twoforone_torch.data.pdb import load_pdb
+    from twoforone_torch.data.synthetic import chain10_dataset
+    from twoforone_torch.models import get_model
+    from twoforone_torch.train.trainer import Trainer, batch_iterator
+    from twoforone_torch.utils.artifacts import trained_dir
+    from twoforone_torch.utils.config import TrainConfig
+
+    with open(os.path.join(trained_dir("chain10"), "config.json")) as f:
+        published = json.load(f)
+    frames = chain10_dataset(TRAIN_FRAMES, seed=0)
+    topology = load_pdb(os.path.join(FOLDED_PDB_DIR, "CLN025-0-c-alpha.pdb")).topology
+    cut = (int(0.7 * TRAIN_FRAMES), int(0.8 * TRAIN_FRAMES))
+    sets = tuple(CGDataset(d, topology, Molecules.CHIGNOLIN)
+                 for d in (frames[:cut[0]], frames[cut[0]:cut[1]], frames[cut[1]:]))
+    batch = published["batch_size"]
+    it = batch_iterator(sets[0].data, batch, seed=1)
+    batches = [next(it) for _ in range(TRAIN_BITS_STEPS)]
+    pairs = [np.stack([next(it), next(it)]) for _ in range(TRAIN_BITS_SHORT)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_graphs_")
+    out = {}
+
+    def make(name, graphed=True, **overrides):
+        cfg = TrainConfig.from_dict(dict(published, results_folder=tmp, tensorboard_folder=tmp,
+                                         experiment_name=name, **overrides))
+        gd = GaussianDiffusion(model=get_model(cfg, 10), num_atoms=10,
+                               timesteps=cfg.diffusion_steps,
+                               norm_factor=float(sets[0].data.std()),
+                               loss_weights=cfg.loss_weights)
+        trainer = Trainer(gd, sets, cfg.mol, cfg, use_tensorboard=False, evaluators=False,
+                          device=dev)
+        if not graphed:
+            trainer._step_graphs = trainer._eval_graphs = None
+        return trainer
+
+    def state(trainer, gen):
+        opt = trainer.optimizer
+        return dict(weights=[t.clone() for t in trainer.net.state_dict().values()],
+                    ema=[t.clone() for t in trainer.ema.state_dict().values()],
+                    grads=[p.grad.clone() for p in trainer.net.parameters()],
+                    moments=[opt.state[p][k].clone() for p in trainer.net.parameters()
+                             for k in ("mu", "nu")],
+                    count=opt.param_groups[0]["count"], step=trainer.step,
+                    kl_max=trainer.kl_max.clone(), generator=gen.get_state())
+
+    def same(a, b, keys=None):
+        def eq(x, y):
+            if isinstance(x, list):
+                return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+            if torch.is_tensor(x):
+                return x.dtype == y.dtype and torch.equal(x, y)
+            return x == y
+        return all(eq(a[k], b[k]) for k in (keys or b))
+
+    def steps(trainer, todo, gen):
+        ms = [trainer._train_step(b, gen) for b in todo]
+        return {k: torch.stack([m[k] for m in ms]) for k in ("loss", "kl_at_T", "kl_max")}
+
+    def bits(label, overrides, todo, chunk=False):
+        """The same steps graphed and eager from one seed: every step's
+        metrics and the state after, bit for bit."""
+        got = {}
+        for graphed in (True, False):
+            trainer = make(f"{label}_{graphed}", graphed, **overrides)
+            gen = torch.Generator(dev).manual_seed(published["seed"] + 1)
+            if chunk:
+                last = trainer._train_chunk(np.stack(todo), gen)
+                metrics = {k: v[None] for k, v in last.items()}
+            else:
+                metrics = steps(trainer, todo, gen)
+            got[graphed] = (metrics, state(trainer, gen), trainer)
+        (m_g, s_g, trainer), (m_e, s_e, _) = got[True], got[False]
+        ok = same(m_g, m_e) and same(s_g, s_e) and s_g["step"] == s_g["count"] == len(todo)
+        log(f"phase17 (a) {label}: {len(todo)} steps{' in one _train_chunk' if chunk else ''} "
+            f"graphed_vs_eager_same_bits: metrics={same(m_g, m_e)} "
+            f"weights={same(s_g, s_e, ['weights'])} ema={same(s_g, s_e, ['ema'])} "
+            f"adam_mu_nu={same(s_g, s_e, ['moments'])} grads={same(s_g, s_e, ['grads'])} "
+            f"count={s_g['count']} step={s_g['step']} "
+            f"generator={same(s_g, s_e, ['generator'])} kl_max={float(s_g['kl_max']):.3e} "
+            f"graphs={sorted(map(str, trainer._step_graphs.graphs))} "
+            f"finite={bool(torch.isfinite(m_g['loss']).all())} ok={ok}")
+        if not ok:
+            fail(f"phase17 (a) {label}: the graphed steps differ from the eager ones")
+        return m_g, s_g, trainer
+
+    started = time.perf_counter()
+    try:
+        # ------------------------------------------------------------ (a)
+        reset_counts()
+        m_a, s_a, trained = bits("float32", {}, batches)
+        bits("gradient_accumulate_every_2", dict(gradient_accumulate_every=2), pairs)
+        bits("bf16", dict(bf16=True), batches[:TRAIN_BITS_SHORT])
+        bits("chunk", {}, batches[:TRAIN_CHUNK], chunk=True)
+        launched = add_counts()
+        if launched != (0, 0, 0, 0):
+            fail(f"phase17 (a): a kernel ran in a training step: {launched}")
+        mark_a = time.perf_counter() - started
+
+        # ------------------------------------------------------------ (b)
+        for fresh in (False, True):
+            trainer = make("resume")
+            gen = torch.Generator(dev).manual_seed(published["seed"] + 1)
+            steps(trainer, batches[:TRAIN_RESUME_AT], gen)
+            trainer.save(1)
+            at_save = gen.get_state()
+            steps(trainer, batches[TRAIN_RESUME_AT:TRAIN_RESUME_AT + TRAIN_RESUME_DRIFT], gen)
+            if fresh:
+                trainer = make("resume")
+            trainer.load("last")
+            gen.set_state(at_save)
+            rest = steps(trainer, batches[TRAIN_RESUME_AT:], gen)
+            s_r = state(trainer, gen)
+            kept = ["weights", "ema", "grads", "moments", "count", "step", "generator"]
+            losses = torch.equal(rest["loss"], m_a["loss"][TRAIN_RESUME_AT:])
+            ok = (same(s_r, s_a, kept) and losses
+                  and torch.equal(s_r["kl_max"], m_a["kl_at_T"][TRAIN_RESUME_AT:].max()))
+            log(f"phase17 (b) save at step {TRAIN_RESUME_AT}, {TRAIN_RESUME_DRIFT} steps on, "
+                f"load('last') into {'a fresh trainer' if fresh else 'the captured trainer'}, "
+                f"continue to {TRAIN_BITS_STEPS}: equal_to_the_straight_run="
+                f"{same(s_r, s_a, kept)} losses={losses} "
+                f"kl_max_since_the_load={float(s_r['kl_max']):.3e} ok={ok}")
+            if not ok:
+                fail("phase17 (b): a resumed graphed run differs from the straight one")
+            del trainer
+        mark_b = time.perf_counter() - started
+
+        # ------------------------------------------------------------ (c)
+        val = np.asarray(sets[1].data)
+        graphs, losses = trained._eval_graphs, {}
+        for graphed in (True, False):
+            trained._eval_graphs = graphs if graphed else None
+            gen = torch.Generator(dev).manual_seed(11)
+            with contextlib.redirect_stdout(sys.stderr):
+                losses[graphed] = [trained.eval_loss(val, TRAIN_EVAL_ITERS, gen)
+                                   for _ in range(2)] + [gen.get_state()]
+        ok = (losses[True][:2] == losses[False][:2] and torch.equal(losses[True][2],
+                                                                     losses[False][2])
+              and all(np.isfinite(losses[True][:2])) and len(graphs.graphs) == 1)
+        out["eval_loss"] = losses[True][:2]
+        log(f"phase17 (c) eval_loss of the EMA weights, {TRAIN_EVAL_ITERS} batches of {batch}, "
+            f"two calls: graphed={losses[True][:2]} eager={losses[False][:2]} same_bits="
+            f"{losses[True][:2] == losses[False][:2]} graphs={list(graphs.graphs)} ok={ok}")
+        if not ok:
+            fail("phase17 (c): the graphed loss evaluation differs from the eager one")
+        mark_c = time.perf_counter() - started
+
+        # ------------------------------------------------------------ (d)
+        rates, memory = out["steps_per_s"], out["memory_mib"] = {}, {}
+        it = batch_iterator(sets[0].data, batch, seed=2)
+        for label, overrides in (("float32", {}), ("bf16", dict(bf16=True))):
+            trainer = make(f"rates_{label}", **overrides)
+            gen = torch.Generator(dev).manual_seed(5)
+            _, _, memory[f"step_{label}"] = first_call_memory(
+                lambda: [trainer._train_step(next(it), gen) for _ in range(2)])
+            r = rates[label] = {}
+            for graphed in (True, False):
+                which = "graphed" if graphed else "eager"
+                if not graphed:
+                    trainer._step_graphs = None
+                ms = timed_steps(trainer, it, gen)
+                wall, busy, kernels = wall_and_busy_ms(
+                    lambda: [trainer._train_step(next(it), gen) for _ in range(TRAIN_PROFILED)])
+                r[which] = dict(ms_per_step=ms, steps_per_s=1e3 / ms,
+                                profiled_ms_per_step=wall / TRAIN_PROFILED,
+                                device_busy_ms_per_step=busy / TRAIN_PROFILED,
+                                device_idle_share=1.0 - busy / wall,
+                                kernels_per_step=kernels / TRAIN_PROFILED)
+                if busy > wall:
+                    fail("phase17 (d): the profiler's device time exceeds the wall time")
+            r["graphed_over_eager"] = r["graphed"]["steps_per_s"] / r["eager"]["steps_per_s"]
+            log(f"phase17 (d) chignolin training step {label}, batch {batch}, "
+                f"{TRAIN_TIMED} steps after {TRAIN_WARMUP}, {TRAIN_PROFILED} under "
+                f"torch.profiler: " + json.dumps(r))
+            if label == "float32":
+                gen = torch.Generator(dev).manual_seed(5)
+                _, _, memory["eval"] = first_call_memory(
+                    lambda: trainer.eval_loss(val, TRAIN_EVAL_ITERS, gen))
+                _, _, memory["sample"] = first_call_memory(lambda: trainer.sample(batch, gen))
+            del trainer
+        log(f"phase17 (d) memory of the trainer's graphs' first calls, MiB (the step's two "
+            f"halves and Adam's moments at the first two steps; eval_loss; sample's "
+            f"reverse step at batch {batch}): {json.dumps(memory)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - started
+    out["phase_s"] = dict(a=mark_a, b=mark_b - mark_a, c=mark_c - mark_b, d=total - mark_c,
+                          total=total)
+    log("phase17 seconds: " + json.dumps(out["phase_s"]))
     return out
 
 
@@ -3453,6 +3737,10 @@ def main():
     # ---------------------------------------------------------- phase 16
     graph_numbers = graph_phase(reset_counts, add_counts, dev)
     mark("phase16")
+
+    # ---------------------------------------------------------- phase 17
+    train_graph_numbers = train_graph_phase(reset_counts, add_counts, dev)
+    mark("phase17")
     log("steps_per_s " + json.dumps({
         **{f"chignolin_chains_{c}": sps[c] for c in CHAINS},
         **{f"{name}_chains_{TRP_CHAINS}_{mode}": rate
@@ -3468,6 +3756,7 @@ def main():
     log("installed " + json.dumps(installed))
     log("workflows " + json.dumps(workflows))
     log("graphs " + json.dumps(graph_numbers))
+    log("training_graphs " + json.dumps(train_graph_numbers))
     log("kernel_100_chains " + json.dumps(timing[100]))
     log(f"kernel_{DDIM_BATCH}_chains " + json.dumps(timing[DDIM_BATCH]))
     log("fused_force_timing " + json.dumps(k4_timing))

@@ -2,20 +2,28 @@
 (``twoforone_torch/utils/cuda_graph.py::StepGraphs``).
 
 On the CPU a stand-in (:class:`StandInGraphs`) takes the place of the CUDA
-calls and keeps the rest: its warm-up is a real call, its capture records
-the function without running it (the wrappers' counts of the recording are
-added as a real recording adds them), and its replay runs the recorded
-function, not the one passed with the call, writing into the outputs of the
+calls and keeps the rest: its warm-up is a real call; its capture runs the
+function's Python once more, as a real capture does, but on fake tensors
+that carry shapes alone, so no real tensor is read or written, host state
+the function changes changes once more, a read of a device value on the
+host raises, and the wrappers count the launches they record; it keeps the
+operations on a tape with the tensors and numbers they were given. Its
+replay runs that tape (not the Python, not the function passed with the
+call) on the tensors of the capture, writing into the outputs of the
 capture, with the launch counters left as a real replay leaves them. The
-loops' tests (``test_torch_graph_langevin.py``, ``test_torch_graph_sampler.py``)
-drive their graphed forms through it. The ``cuda`` tests need the card and
-skip without one; this file imports nothing of JAX, so on a GPU machine
+loops' tests (``test_torch_graph_langevin.py``,
+``test_torch_graph_sampler.py``, ``test_torch_graph_train.py``) drive
+their graphed forms through it. The ``cuda`` tests need the card and skip
+without one; this file imports nothing of JAX, so on a GPU machine
 without it: ``python -m pytest tests/test_torch_graph_capture.py -m cuda
 --noconftest``.
 """
 
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves, tree_map
 
 from twoforone_torch.ops import attention_cl_core as acc
 from twoforone_torch.ops import fused_score as fsc
@@ -36,17 +44,64 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+class _Recording(TorchDispatchMode):
+    """A capture's recording on the CPU. Every operation runs on fake
+    tensors: each real tensor an operation is given is replaced by its fake
+    (shape, dtype and device, no data), so nothing real is read or written
+    and a read of a value on the host raises. (A fake-tensor mode alone
+    would run an operation whose inputs are all real on the real tensors.)
+    Each operation is kept on a tape with the real tensors it was given and
+    the numbers it was called with; :meth:`replay` runs the tape on those
+    tensors, as a CUDA graph replays its kernels on the memory they used at
+    the capture, whatever the Python would do now."""
+
+    def __init__(self):
+        super().__init__()
+        self.fake = FakeTensorMode(allow_non_fake_inputs=True)
+        self.tape, self.real, self.held = [], {}, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        def fake(a):
+            if isinstance(a, torch.Tensor) and not isinstance(a, FakeTensor):
+                f = self.fake.from_tensor(a)
+                self.real[id(f)] = a
+                self.held.append(f)
+                return f
+            return a
+
+        args, kwargs = tree_map(fake, (args, kwargs or {}))
+        with self.fake:
+            out = func(*args, **kwargs)
+        self.tape.append((func, args, kwargs, out))
+        self.held.append(out)  # the ids of the tape's tensors stay unique
+        return out
+
+    @torch.no_grad()
+    def replay(self) -> dict:
+        """Runs the tape; returns the real tensor of each fake by its id."""
+        values = dict(self.real)
+
+        def real(a):
+            return values[id(a)] if isinstance(a, FakeTensor) else a
+
+        for func, args, kwargs, out in self.tape:
+            got = func(*tree_map(real, args), **tree_map(real, kwargs))
+            for f, r in zip(tree_leaves(out), tree_leaves(got)):
+                if isinstance(f, FakeTensor):
+                    values[id(f)] = r
+        return values
+
+
 class _StandInGraph:
-    def __init__(self, fn, outputs):
-        self.fn, self.outputs = fn, outputs
+    def __init__(self, recording, recorded_outputs, outputs):
+        self.recording, self.recorded_outputs, self.outputs = recording, recorded_outputs, outputs
         self.replays = 0
 
     def replay(self):
-        counts = kernel_launches()  # a replay runs no wrapper
-        fresh = self.fn()
-        set_kernel_launches(counts)
-        for static, new in zip(cuda_graph._tensors(self.outputs), cuda_graph._tensors(fresh)):
-            static.copy_(new)
+        values = self.recording.replay()  # runs no wrapper: the counters stay
+        for static, fake in zip(cuda_graph._tensors(self.outputs),
+                                cuda_graph._tensors(self.recorded_outputs)):
+            static.copy_(values[id(fake)])
         self.replays += 1
 
 
@@ -55,21 +110,26 @@ class StandInGraphs(StepGraphs):
 
     def __init__(self, device="cpu"):
         super().__init__(device)
-        self.warm_ups = 0
+        self.warm_ups = self.captures = 0
 
     def _warm_up(self, fn):
-        before = kernel_launches()
         self._first = fn()
-        self._recorded = tuple(a - b for a, b in zip(kernel_launches(), before))
         self.warm_ups += 1
         return self._first
 
     def _capture(self, fn):
-        # Recording issues every launch of fn once and runs none of them; the
-        # outputs of a capture are tensors of the warm-up's shapes.
-        cuda_graph.add_kernel_launches(self._recorded)
+        # A capture runs fn's Python once more and records its work without
+        # running it: here fn runs on fake tensors, so host state that fn
+        # changes changes once more, as on the card, and a read of a value on
+        # the host (a sync) raises. The wrappers count the launches they
+        # record. The outputs of a capture are tensors of the warm-up's
+        # shapes, which every replay rewrites.
+        recording = _Recording()
+        with recording:
+            recorded = fn()
+        self.captures += 1
         outputs = _clone(self._first)
-        return _StandInGraph(fn, outputs), outputs
+        return _StandInGraph(recording, recorded, outputs), outputs
 
 
 def _clone(tree):
@@ -149,13 +209,56 @@ def test_replay_runs_the_captured_function_into_the_captures_outputs():
 def test_a_failed_capture_raises_and_takes_its_counts_back(zero_launches):
     class Failing(StandInGraphs):
         def _capture(self, fn):
-            cuda_graph.add_kernel_launches(self._recorded)
+            fn()  # the recording counts what it records, then fails
             raise RuntimeError("operation not permitted when stream is capturing")
 
     graphs = Failing()
     with pytest.raises(RuntimeError, match="capturing"):
         graphs("k", _counting_fn(torch.ones(3), 1.0))
     assert kernel_launches() == PER_CALL  # the warm-up ran, the recording did not
+    assert graphs.graphs == {}
+
+
+def test_the_capture_reruns_the_python_and_writes_nothing():
+    """As on the card: the recording runs the function's Python (a host
+    counter it advances advances once more) and executes none of its work
+    (the tensor it adds to is the warm-up's result, untouched)."""
+    graphs = StandInGraphs()
+    x, calls = torch.zeros(3), []
+
+    def fn():
+        calls.append(1)
+        x.add_(1.0)
+
+    graphs("k", fn)
+    assert len(calls) == 2 and torch.equal(x, torch.ones(3)) and graphs.captures == 1
+    graphs("k", fn)  # a replay runs the recorded work, not the Python
+    assert len(calls) == 2 and torch.equal(x, torch.full((3,), 2.0))
+
+
+def test_a_replay_uses_the_tensors_and_numbers_of_the_capture():
+    """What a replay reads is fixed at the capture: a tensor rebound since
+    is not seen (the captured one is), and a Python number is a constant."""
+    graphs = StandInGraphs()
+    state = {"x": torch.ones(3), "scale": 2.0}
+
+    def fn():
+        return state["x"] * state["scale"]
+
+    graphs("k", fn)
+    captured = state["x"]
+    state["x"], state["scale"] = torch.full((3,), 10.0), 3.0
+    captured += 1.0
+    assert torch.equal(graphs("k", fn), torch.full((3,), 4.0))
+
+
+def test_a_host_read_inside_the_capture_raises():
+    """A capture cannot read a device value on the host; neither can the
+    stand-in's."""
+    graphs = StandInGraphs()
+    x = torch.ones(3)
+    with pytest.raises(Exception):
+        graphs("k", lambda: x * float(x.sum()))
     assert graphs.graphs == {}
 
 

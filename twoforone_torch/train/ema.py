@@ -11,7 +11,10 @@ ema-pytorch semantics, as the reference trainer uses them
   clamped to ``beta``,
 - updates apply every ``update_every`` calls.
 
-The decay is computed in float32, as the JAX package computes it.
+The decay is computed in float32, as the JAX package computes it, on the
+host; the update reads it from device scalars (:func:`ema_due` fills them,
+:func:`ema_apply` updates), which is how a captured training step takes a
+new decay at every replay. Whether a call updates is the host's decision.
 """
 
 from __future__ import annotations
@@ -50,14 +53,38 @@ def current_decay(step: int, cfg: EMAConfig) -> np.float32:
     return np.float32(min(max(value, np.float32(0.0)), np.float32(cfg.beta)))
 
 
+def ema_scalars(device) -> tuple:
+    """The device scalars of an update, ``(decay, 1 - decay)``: 0-d float32
+    tensors that :func:`ema_due` fills and :func:`ema_apply` reads."""
+    return torch.zeros((), device=device), torch.zeros((), device=device)
+
+
+def ema_due(step: int, cfg: EMAConfig, scalars) -> bool:
+    """Whether EMA-update call ``step`` updates (the host decides: every
+    ``update_every`` calls); when it does, its ``decay`` and ``1 - decay``
+    (host float32) are filled into ``scalars``."""
+    if int(step) % cfg.update_every != 0:
+        return False
+    decay = current_decay(step, cfg)
+    scalars[0].fill_(float(decay))
+    scalars[1].fill_(float(np.float32(1.0) - decay))
+    return True
+
+
 @torch.no_grad()
+def ema_apply(ema: nn.Module, net: nn.Module, scalars) -> None:
+    """The device work of one EMA update: ``ema = decay ema + (1 - decay)
+    net`` in place, with the numbers read from ``scalars``, so that a
+    training step's CUDA graph records it once for every update."""
+    e = [p for p in ema.parameters()]
+    p = [q.detach() for q in net.parameters()]
+    torch._foreach_mul_(e, scalars[0])
+    torch._foreach_add_(e, torch._foreach_mul(p, scalars[1]))
+
+
 def ema_update(ema: nn.Module, net: nn.Module, step: int, cfg: EMAConfig) -> None:
     """One (possibly skipped) in-place EMA update of ``ema`` towards ``net``;
     ``step`` counts update calls so far."""
-    if int(step) % cfg.update_every != 0:
-        return
-    decay = current_decay(step, cfg)
-    e = [p for p in ema.parameters()]
-    p = [q.detach() for q in net.parameters()]
-    torch._foreach_mul_(e, float(decay))
-    torch._foreach_add_(e, torch._foreach_mul(p, float(np.float32(1.0) - decay)))
+    scalars = ema_scalars(next(ema.parameters()).device)
+    if ema_due(step, cfg, scalars):
+        ema_apply(ema, net, scalars)

@@ -14,9 +14,20 @@
   plain network's -dE/dx with its graph kept (``score_forward(...,
   create_graph=True)``); no kernel runs in a training step, as in the JAX
   package.
-- ``steps_per_host_loop`` = K runs K steps in a Python loop (the JAX
-  package's device-side scan has no counterpart), with the same rounding
-  of the evaluation interval and the same clamp of the last chunk.
+- On the card a step replays CUDA graphs, the counterpart of the JAX
+  package's jitted step (:mod:`twoforone_torch.utils.cuda_graph`): one of
+  the gradient half (rotation, loss, double backward, summed over the
+  micro-batches) and one of the update half (KL max, AdamW, EMA; one
+  variant for the steps that update the EMA, one for those that skip it).
+  The draws, the batch and each update's numbers (learning rate, bias
+  corrections, EMA decay) go into static buffers and device scalars
+  before the replays; a mesh's collectives run between the halves; the
+  host keeps the counts. The eager step runs the same functions, so both
+  give the same bits; the CPU runs it. ``eval_loss`` replays one captured
+  batch the same way.
+- ``steps_per_host_loop`` = K runs K steps, each replayed on its own (the
+  JAX package scans them in one program), with the same rounding of the
+  evaluation interval and the same clamp of the last chunk.
 - The KL-at-T invariant is a running max on the device, asserted at every
   log point; evaluation on the EMA weights; best / last / milestone
   checkpoints in the JAX package's msgpack tree (weights in the flax
@@ -49,6 +60,7 @@ import copy
 import math
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -68,7 +80,7 @@ from twoforone_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
-from twoforone_torch.train.ema import EMAConfig, ema_update, init_ema
+from twoforone_torch.train.ema import EMAConfig, ema_apply, ema_due, ema_scalars, init_ema
 from twoforone_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from twoforone_torch.utils.convert import params_from_jax, params_to_jax
 from twoforone_torch.utils.cuda_graph import graphs_for
@@ -112,40 +124,79 @@ class AdamW(torch.optim.Optimizer):
     by ~6e-6 of itself), the weight decay from the pre-update weights, and
     one update count per parameter group (``group["count"]``, optax's
     ``count``). ``group["lr"]`` is the rate of this update.
+
+    An update is two halves: :meth:`advance` on the host (the count, the
+    moments' creation, and the numbers that change every update, ``-lr``
+    and the reciprocals of the two bias corrections, into 0-d device
+    tensors of the group, ``group["device_scalars"]``) and :meth:`apply` on
+    the device, which reads only tensors, so that a training step's CUDA
+    graph records it once for every update. :meth:`step` runs both.
+
+    The moments are multiplied by the float32 reciprocal of each bias
+    correction, which is what dividing them by a Python number does on the
+    card (ATen takes a host scalar's reciprocal; dividing by a device
+    tensor divides), so the update keeps the bits of the eager update that
+    divided by Python numbers; optax divides, a last-bit difference.
     """
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay, count=0))
+        for group in self.param_groups:
+            device = group["params"][0].device
+            group["device_scalars"] = tuple(torch.zeros((), device=device) for _ in range(3))
+
+    @staticmethod
+    def _live(group):
+        return [p for p in group["params"] if p.grad is not None]
 
     @torch.no_grad()
     def step(self, closure=None):
+        self.advance()
+        self.apply()
+
+    def advance(self):
+        """The host half of an update: count it, create the moments of a
+        parameter's first update, and fill ``-lr``, ``1 / (1 - b1^count)``
+        and ``1 / (1 - b2^count)`` (host float32) into the group's device
+        scalars."""
+        f32 = np.float32
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params = self._live(group)
             if not params:
                 continue
             for p in params:
                 if not self.state[p]:
                     self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+            group["count"] += 1
+            neg_lr, inv_bc1, inv_bc2 = group["device_scalars"]
+            neg_lr.fill_(-float(f32(group["lr"])))
+            for inv, b in ((inv_bc1, group["b1"]), (inv_bc2, group["b2"])):
+                inv.fill_(float(f32(1.0) / (f32(1.0) - f32(b) ** f32(group["count"]))))
+
+    @torch.no_grad()
+    def apply(self):
+        """The device half of an update, on the numbers :meth:`advance` filled."""
+        for group in self.param_groups:
+            params = self._live(group)
+            if not params:
+                continue
             grads = [p.grad for p in params]
             mu = [self.state[p]["mu"] for p in params]
             nu = [self.state[p]["nu"] for p in params]
             b1, b2 = group["b1"], group["b2"]
+            neg_lr, inv_bc1, inv_bc2 = group["device_scalars"]
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
             torch._foreach_mul_(nu, b2)
             torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
                                                        1.0 - b2))
-            group["count"] += 1
-            f32 = np.float32
-            bc1 = float(f32(1.0) - f32(b1) ** f32(group["count"]))
-            bc2 = float(f32(1.0) - f32(b2) ** f32(group["count"]))
-            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            denom = torch._foreach_sqrt(torch._foreach_mul(nu, inv_bc2))
             torch._foreach_add_(denom, group["eps"])
-            update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            update = torch._foreach_div(torch._foreach_mul(mu, inv_bc1), denom)
             torch._foreach_add_(update, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(update, -float(f32(group["lr"])))
+            torch._foreach_mul_(update, neg_lr)
             torch._foreach_add_(params, update)
 
 
@@ -160,6 +211,28 @@ def make_optimizer(net: torch.nn.Module, config):
     else:
         schedule = lambda count: float(config.learning_rate)  # noqa: E731
     return AdamW(net.parameters(), lr=schedule(0), weight_decay=config.weight_decay), schedule
+
+
+def _run(graphs, key, fn):
+    """``fn()`` eagerly when ``graphs`` is None, else replayed from ``graphs``
+    under ``key`` (the first call of a key warms up and captures)."""
+    return fn() if graphs is None else graphs(key, fn)
+
+
+def _static(graphs, name, value: torch.Tensor) -> torch.Tensor:
+    """``value`` itself when eager, else copied into the static buffer
+    ``name`` of ``graphs`` that the captured work reads."""
+    if graphs is None:
+        return value
+    return graphs.buffer(name, value.shape, value.dtype).copy_(value)
+
+
+def _output(graphs, name, like: torch.Tensor) -> torch.Tensor:
+    """Where work writes a result: a new tensor shaped like ``like`` when
+    eager, else the static buffer ``name`` of ``graphs``."""
+    if graphs is None:
+        return torch.zeros_like(like)
+    return graphs.buffer(name, like.shape, like.dtype)
 
 
 class Trainer:
@@ -203,11 +276,16 @@ class Trainer:
         self.net.load_state_dict(params_from_jax(init_params(diffusion_model.model, config.seed)))
         replicate(self.net, mesh)
         self.ema = init_ema(self.net)
-        # The CUDA graph of sample()'s reverse step on the card, captured once:
-        # the EMA weights it reads are updated and loaded in place.
+        # The CUDA graphs of the card, each captured once: the training step's
+        # two halves, the loss evaluation, and sample()'s reverse step. The
+        # weights, the EMA, Adam's moments and the KL max they read are
+        # updated and loaded in place. None (the CPU) runs them eagerly.
+        self._step_graphs = graphs_for(self.device)
+        self._eval_graphs = graphs_for(self.device)
         self._sample_graphs = graphs_for(self.device)
         self.optimizer, self.lr_schedule = make_optimizer(self.net, config)
         self.ema_cfg = EMAConfig(beta=config.ema_decay)
+        self._ema_scalars = ema_scalars(self.device)
 
         exp = config.experiment_name + ("_" if config.experiment_name else "")
         self.results_folder = os.path.join(config.results_folder, exp)
@@ -277,44 +355,70 @@ class Trainer:
         ``draws`` (tests): one dict per micro-batch with the ``rotation``
         (B, 3, 3), ``t`` (B,) and ``noise`` (B, N, 3) of the global batch
         that another implementation drew; what is missing is drawn from
-        ``generator``. Returns the step's metrics as device tensors, over
+        ``generator``. Returns the step's metrics as new device tensors, over
         the global batch: ``loss``, ``kl_at_T``, ``kl_max``.
+
+        On the card the step replays two captured halves (the counterpart
+        of the JAX package's jitted step): the gradients, then the update.
+        The draws, the batch and the update's numbers are filled into static
+        buffers and device scalars before the replays, and a mesh's
+        collectives run between the halves. On the CPU both run eagerly;
+        both forms run the same functions, so they give the same bits.
         """
+        graphs = self._step_graphs
         with float32_products():
             batch = shard_batch(batch, self.mesh, self.device)
             if batch.ndim == 3:
                 batch = batch[None]
-            accum = batch.shape[0]
+            drawn = [self._draws(generator, batch.shape[1], self.config.data_aug,
+                                 None if draws is None else draws[i])
+                     for i in range(batch.shape[0])]
             params = list(self.net.parameters())
-            grads = [torch.zeros_like(p) for p in params]
-            losses, kls = [], []
-            for i in range(accum):
-                mb = batch[i]
-                d = self._draws(generator, mb.shape[0], self.config.data_aug,
-                                draws[i] if draws is not None else None)
-                if self.config.data_aug:
-                    mb = rotate(mb, d["rotation"])
-                loss, aux = self.gd.net_loss(self.net, mb, t=d["t"], noise=d["noise"])
-                if loss.requires_grad:  # not so for an energy that ignores x
-                    for g, gi in zip(grads, torch.autograd.grad(loss, params,
-                                                                allow_unused=True)):
-                        if gi is not None:
-                            g.add_(gi)
-                losses.append(loss.detach())
-                kls.append(aux["kl_at_T"])
-            kl_step = all_reduce_(torch.stack(kls).max(), self.mesh, "max")
-            self.kl_max = torch.maximum(self.kl_max, kl_step)
-            if accum > 1:
-                grads = [g / accum for g in grads]
+            grads = [_output(graphs, ("grad", i), p) for i, p in enumerate(params)]
+            loss, kl = (_output(graphs, name, self.kl_max) for name in ("loss", "kl"))
+            batch = _static(graphs, "batch", batch)
+            drawn = [{k: _static(graphs, (k, i), v) for k, v in d.items()}
+                     for i, d in enumerate(drawn)]
+            _run(graphs, ("gradients", tuple(batch.shape)),
+                 partial(self._gradients, grads, loss, kl, batch, drawn))
+            all_reduce_(kl, self.mesh, "max")
             if self.mesh is not None:
                 # One flat buffer, one collective: the mean over the global batch.
                 flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
-                grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]),
-                                                      grads)]
-            self._update(grads)
-            loss = losses[0] if accum == 1 else torch.stack(losses).sum() / accum
-            loss = all_reduce_(loss, self.mesh)
-        return {"loss": loss, "kl_at_T": kl_step, "kl_max": self.kl_max}
+                for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+                    g.copy_(f.view_as(g))
+            all_reduce_(loss, self.mesh)
+            for p, g in zip(params, grads):
+                p.grad = g
+            self._apply_update(kl, graphs)
+        return {"loss": loss.clone(), "kl_at_T": kl.clone(), "kl_max": self.kl_max.clone()}
+
+    def _gradients(self, grads, loss_out, kl_out, batch, draws) -> None:
+        """The gradient half of a step, device work only (run eagerly, or
+        recorded in the step's graph): for each micro-batch its rotation,
+        ``net_loss`` with the force's graph kept and the gradient of the
+        loss, summed into ``grads``, then divided by the micro-batch count;
+        the mean loss into ``loss_out`` and the largest KL-at-T into
+        ``kl_out``. Unused parameters keep a zero gradient."""
+        params = list(self.net.parameters())
+        torch._foreach_zero_(grads)
+        losses, kls = [], []
+        for mb, d in zip(batch, draws):
+            if self.config.data_aug:
+                mb = rotate(mb, d["rotation"])
+            loss, aux = self.gd.net_loss(self.net, mb, t=d["t"], noise=d["noise"])
+            if loss.requires_grad:  # not so for an energy that ignores x
+                for g, gi in zip(grads, torch.autograd.grad(loss, params, allow_unused=True)):
+                    if gi is not None:
+                        g.add_(gi)
+            losses.append(loss.detach())
+            kls.append(aux["kl_at_T"])
+        accum = len(losses)
+        if accum > 1:
+            for g in grads:
+                g.div_(accum)
+        loss_out.copy_(losses[0] if accum == 1 else torch.stack(losses).sum() / accum)
+        kl_out.copy_(torch.stack(kls).max())
 
     def _update(self, grads) -> None:
         """One optimizer update with ``grads`` (one tensor per parameter, in
@@ -323,15 +427,41 @@ class Trainer:
         that count, then the count's increment."""
         for p, g in zip(self.net.parameters(), grads):
             p.grad = torch.as_tensor(g, dtype=torch.float32, device=self.device)
+        self._apply_update(None, None)
+
+    def _apply_update(self, kl, graphs) -> None:
+        """The update half of a step. The host decides this update's numbers
+        (the learning rate at the count before it, Adam's count and bias
+        corrections, whether the EMA updates and its decay) and fills them
+        into device scalars; then :meth:`_update_work` runs, eagerly or
+        replayed from ``graphs`` (one graph for the steps that update the
+        EMA, one for those that skip it); then the count's increment."""
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.step)
-        self.optimizer.step()
-        ema_update(self.ema, self.net, self.step, self.ema_cfg)
+        ema_now = ema_due(self.step, self.ema_cfg, self._ema_scalars)
+        if graphs is None:
+            self._update_work(kl, ema_now, self.optimizer.step)
+        else:
+            self.optimizer.advance()
+            graphs(("update", ema_now),
+                   partial(self._update_work, kl, ema_now, self.optimizer.apply))
         self.step += 1
 
+    def _update_work(self, kl, ema_now: bool, optimizer_step) -> None:
+        """The device work of an update: the running KL max in place, the
+        optimizer's update, the EMA's when ``ema_now``."""
+        if kl is not None:
+            torch.maximum(self.kl_max, kl, out=self.kl_max)
+        optimizer_step()
+        if ema_now:
+            ema_apply(self.ema, self.net, self._ema_scalars)
+
     def _train_chunk(self, batches, generator: torch.Generator, draws=None) -> dict:
-        """K optimizer steps (``batches``: (K, B, N, 3) or (K, accum, B, N, 3));
-        returns the last step's metrics (``kl_max`` covers every step)."""
+        """K optimizer steps (``batches``: (K, B, N, 3) or (K, accum, B, N, 3)),
+        the counterpart of the JAX package's scanned chunk: K calls of
+        :meth:`_train_step`, each filling its draws and batch before its
+        replays on the card. Returns the last step's metrics (``kl_max``
+        covers every step)."""
         for k in range(len(batches)):
             metrics = self._train_step(batches[k], generator,
                                        None if draws is None else draws[k])
@@ -342,24 +472,33 @@ class Trainer:
                   partition_name: str = "val") -> float:
         """Mean loss of the EMA weights over ``val_iters`` batches of ``data``
         (global batches: each rank draws its rows, and the mean is taken
-        over the ranks)."""
+        over the ranks). On the card each batch replays one captured
+        evaluation, with the batch, t and the noise in static buffers and
+        the total kept on the device."""
         print(f"val iters {val_iters}")
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=generator.device))
         it = batch_iterator(data, self.local_batch, seed=(seed + 7919 * self.rank) % 2**31)
-        total = torch.zeros((), device=self.device)
+        graphs = self._eval_graphs
+        total = _output(graphs, "total", self.kl_max).zero_()
         with float32_products(), torch.no_grad():
             for _ in range(val_iters):
                 mb = shard_batch(next(it), self.mesh, self.device)
                 d = self._draws(generator, mb.shape[0], rotation=False)
-                loss, _ = self.gd.net_loss(self.ema, mb, t=d["t"], noise=d["noise"],
-                                           create_graph=False)
-                total += loss
+                inputs = [_static(graphs, name, v) for name, v in
+                          (("batch", mb), ("t", d["t"]), ("noise", d["noise"]))]
+                _run(graphs, ("eval", tuple(mb.shape)), partial(self._eval_batch, total, *inputs))
         loss = float(all_reduce_(total, self.mesh)) / max(1, val_iters)
         if self.writer is not None:
             self.writer.add_scalar(f"Loss {partition_name}", loss, int(self.step))
         print(f"Loss {partition_name} \t {loss}")
         return loss
+
+    def _eval_batch(self, total, mb, t, noise) -> None:
+        """The EMA weights' loss on one batch, added to ``total`` (device work
+        only)."""
+        loss, _ = self.gd.net_loss(self.ema, mb, t=t, noise=noise, create_graph=False)
+        total.add_(loss)
 
     def sample(self, num_samples: int, generator: torch.Generator = None) -> np.ndarray:
         """Sample from the EMA weights with the plain network's full
@@ -405,9 +544,14 @@ class Trainer:
         adam = opt_state["0"]
         mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
         self.optimizer.param_groups[0]["count"] = int(np.asarray(adam["count"]))
+        # Into the moments that exist: a captured update reads those tensors.
         for name, p in self.net.named_parameters():
-            self.optimizer.state[p] = {"mu": mu[name].to(self.device),
-                                       "nu": nu[name].to(self.device)}
+            st = self.optimizer.state[p]
+            for k, v in (("mu", mu[name]), ("nu", nu[name])):
+                if k in st:
+                    st[k].copy_(v)
+                else:
+                    st[k] = v.to(self.device)
 
     def save(self, milestone, save_best: bool = False):
         state = {
@@ -431,7 +575,7 @@ class Trainer:
         self.ema.load_state_dict(params_from_jax(state["ema_params"]))
         self._load_opt_state(state["opt_state"])
         self.step = int(state["step"])
-        self.kl_max = torch.zeros((), device=self.device)
+        self.kl_max.zero_()
 
     def train(self):
         cfg = self.config

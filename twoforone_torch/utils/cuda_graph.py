@@ -2,13 +2,14 @@
 
 The JAX package compiles its hot loops into XLA programs: a save period of
 Langevin steps (``lax.fori_loop`` in ``lax.scan``), each reverse chain
-(``lax.scan`` under ``jax.jit``) and the clx force evaluation. On the card
-the port records the same work once in a CUDA graph and replays it, so the
-host issues one launch where an eager step issues hundreds.
-:class:`StepGraphs` is the one capture helper behind the Langevin step
-(:mod:`twoforone_torch.dynamics.integrators`), the plain network's reverse
-step (:mod:`twoforone_torch.core.diffusion`) and the clx evaluation
-(:mod:`twoforone_torch.ops.fused_score_clx`).
+(``lax.scan`` under ``jax.jit``), the clx force evaluation and the training
+step, chunk and loss evaluation. On the card the port records the same work
+once in a CUDA graph and replays it, so the host issues one launch where an
+eager step issues hundreds. :class:`StepGraphs` is the one capture helper
+behind the Langevin step (:mod:`twoforone_torch.dynamics.integrators`), the
+plain network's reverse step (:mod:`twoforone_torch.core.diffusion`), the
+clx evaluation (:mod:`twoforone_torch.ops.fused_score_clx`) and the
+training step and loss evaluation (:mod:`twoforone_torch.train.trainer`).
 
 A graph replays the kernels recorded at its capture on the memory it read
 and wrote then. So a captured function reads its inputs from static buffers
@@ -58,7 +59,8 @@ def _tensors(tree):
 
 class StepGraphs:
     """The CUDA graphs of one loop (a simulation, a sampling closure, a clx
-    evaluation), keyed by the caller, on one side stream and one memory pool.
+    evaluation, a trainer's step or evaluation), keyed by the caller, on one
+    side stream and one memory pool.
 
     ``graphs(key, fn)`` runs ``fn()``. The first call of a key runs it
     eagerly on the side stream (the warm-up, a real call: it loads the
