@@ -1,0 +1,7 @@
+"""ms a training step of device idle under the trainer's ``trainer.batch`` span."""
+
+from benchmark.harness.spans import idle_ms
+
+
+def read(run):
+    return idle_ms(run, "train", ["trainer.batch"], "train_steps")

@@ -479,7 +479,9 @@ def test_trainer_end_to_end_tiny(tmp_path):
                  "results-final_iid_val.json", "results-final_iid_test.json",
                  "results-1_iid.json", "ramachandran_sampled_final_iid_val.png"):
         assert os.path.exists(os.path.join(rf, name)), name
-    assert os.path.exists(os.path.join(trainer.config.tensorboard_folder, "profile", "trace.json"))
+    trace = os.path.join(trainer.config.tensorboard_folder, "profile", "trace.json")
+    names = {e.get("name") for e in json.load(open(trace))["traceEvents"]}
+    assert {"trainer.batch", "trainer.draws", "trainer.gradients", "trainer.update"} <= names
     results = json.load(open(os.path.join(rf, "results-final_iid_val.json")))
     assert math.isfinite(results["Dihedral JS"]) and math.isfinite(results["PWD JS"])
     assert int(load_checkpoint(rf, "last")["step"]) == 40

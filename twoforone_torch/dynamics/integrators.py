@@ -18,6 +18,9 @@
   just before it, so a graphed run draws the numbers an eager one draws.
   The generator state is part of :attr:`state`, so a run
   resumed with :meth:`load_state` continues the uninterrupted trajectory.
+- Spans (:mod:`twoforone_torch.utils.profiling`): ``langevin.step`` around
+  each step's host work, ``langevin.frames`` around each chunk's copy of the
+  saved frames to the host, ``langevin.state`` around :attr:`state`'s.
 - Parallel chains are the leading batch axis. With a ``mesh``
   (:mod:`twoforone_torch.parallel.mesh`) rank r of W holds the chains
   ``[r n/W, (r+1) n/W)``; each step every rank draws the noise of all
@@ -40,6 +43,7 @@ import torch
 from twoforone_torch.ops.geometry import center_zero
 from twoforone_torch.parallel.mesh import entry_device, gather, local_rows
 from twoforone_torch.utils.cuda_graph import graphs_for
+from twoforone_torch.utils.profiling import annotate
 
 ForceFn = Callable[[torch.Tensor], tuple]  # x -> (potential, forces)
 
@@ -207,12 +211,13 @@ class LangevinSimulation:
         if self._state is None:
             self._state = self._init_state()
         x, v = self._state
-        return {
-            "x": gather(x, self.mesh).cpu().numpy(),
-            "v": None if v is None else gather(v, self.mesh).cpu().numpy(),
-            "t": self._t,
-            "key": self._gen.get_state().numpy(),
-        }
+        with annotate("langevin.state"):
+            return {
+                "x": gather(x, self.mesh).cpu().numpy(),
+                "v": None if v is None else gather(v, self.mesh).cpu().numpy(),
+                "t": self._t,
+                "key": self._gen.get_state().numpy(),
+            }
 
     def load_state(self, state: dict):
         rows = self._rows
@@ -357,39 +362,41 @@ class LangevinSimulation:
             chunk = min(steps_per_chunk, remaining - done)
             saved = {"coords": [], "forces": [], "potential": [], "kinetic_energy": []}
             for i in range(chunk):
-                if graphs is not None:
-                    potential, forces = advance(coefs_all[done + i])
-                else:
-                    noise = self._draw_noise(x)
-                    x, v, potential, forces = self.one_step(
-                        x, v, float(betas_all[done + i]), noise
-                    )
-                if (i + 1) % self.save_interval == 0:
-                    saved["coords"].append(keep(x))
-                    if self.save_forces:
-                        saved["forces"].append(keep(forces))
-                    if self.save_potential:
-                        saved["potential"].append(keep(potential))
-                    if ke_out is not None:
-                        saved["kinetic_energy"].append(
-                            0.5 * torch.sum(self._masses[:, None] * v**2, dim=(1, 2))
+                with annotate("langevin.step"):
+                    if graphs is not None:
+                        potential, forces = advance(coefs_all[done + i])
+                    else:
+                        noise = self._draw_noise(x)
+                        x, v, potential, forces = self.one_step(
+                            x, v, float(betas_all[done + i]), noise
                         )
+                    if (i + 1) % self.save_interval == 0:
+                        saved["coords"].append(keep(x))
+                        if self.save_forces:
+                            saved["forces"].append(keep(forces))
+                        if self.save_potential:
+                            saved["potential"].append(keep(potential))
+                        if ke_out is not None:
+                            saved["kinetic_energy"].append(
+                                0.5 * torch.sum(self._masses[:, None] * v**2, dim=(1, 2))
+                            )
             n_saves = chunk // self.save_interval
             sl = slice(save_idx, save_idx + n_saves)
 
             def host(name):  # (n_saves, all chains, ...) on the host
                 return gather(torch.stack(saved[name]), self.mesh, dim=1).cpu().numpy()
 
-            coords_out[sl] = host("coords")
-            if self.save_forces:
-                forces_out[sl] = host("forces")
-            if self.save_potential:
-                pot = host("potential")
-                if potential_out is None:
-                    potential_out = np.empty((total_saves,) + pot.shape[1:], dtype=np.float32)
-                potential_out[sl] = pot
-            if ke_out is not None:
-                ke_out[sl] = host("kinetic_energy")
+            with annotate("langevin.frames"):
+                coords_out[sl] = host("coords")
+                if self.save_forces:
+                    forces_out[sl] = host("forces")
+                if self.save_potential:
+                    pot = host("potential")
+                    if potential_out is None:
+                        potential_out = np.empty((total_saves,) + pot.shape[1:], dtype=np.float32)
+                    potential_out[sl] = pot
+                if ke_out is not None:
+                    ke_out[sl] = host("kinetic_energy")
             done += chunk
             save_idx += n_saves
             self._t += chunk

@@ -25,6 +25,11 @@
   host keeps the counts. The eager step runs the same functions, so both
   give the same bits; the CPU runs it. ``eval_loss`` replays one captured
   batch the same way.
+- Each step's host phases are spans (:mod:`twoforone_torch.utils.profiling`):
+  ``trainer.batch``, ``trainer.draws``, ``trainer.gradients`` and
+  ``trainer.update``. ``profile_steps`` = K writes a Chrome trace of K steps
+  from step 10 to ``tensorboard_folder/profile/trace.json`` through
+  ``profiling.trace``.
 - ``steps_per_host_loop`` = K runs K steps, each replayed on its own (the
   JAX package scans them in one program), with the same rounding of the
   evaluation interval and the same clamp of the last chunk.
@@ -56,6 +61,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
@@ -86,6 +92,7 @@ from twoforone_torch.utils.convert import params_from_jax, params_to_jax
 from twoforone_torch.utils.cuda_graph import graphs_for
 from twoforone_torch.utils.device import float32_products
 from twoforone_torch.utils.preempt import exit_if_preempted
+from twoforone_torch.utils.profiling import annotate, trace
 
 
 def batch_iterator(data: np.ndarray, batch_size: int, seed: int = 0):
@@ -367,29 +374,32 @@ class Trainer:
         """
         graphs = self._step_graphs
         with float32_products():
-            batch = shard_batch(batch, self.mesh, self.device)
-            if batch.ndim == 3:
-                batch = batch[None]
-            drawn = [self._draws(generator, batch.shape[1], self.config.data_aug,
-                                 None if draws is None else draws[i])
-                     for i in range(batch.shape[0])]
-            params = list(self.net.parameters())
-            grads = [_output(graphs, ("grad", i), p) for i, p in enumerate(params)]
-            loss, kl = (_output(graphs, name, self.kl_max) for name in ("loss", "kl"))
-            batch = _static(graphs, "batch", batch)
-            drawn = [{k: _static(graphs, (k, i), v) for k, v in d.items()}
-                     for i, d in enumerate(drawn)]
-            _run(graphs, ("gradients", tuple(batch.shape)),
-                 partial(self._gradients, grads, loss, kl, batch, drawn))
-            all_reduce_(kl, self.mesh, "max")
-            if self.mesh is not None:
-                # One flat buffer, one collective: the mean over the global batch.
-                flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
-                for g, f in zip(grads, flat.split([g.numel() for g in grads])):
-                    g.copy_(f.view_as(g))
-            all_reduce_(loss, self.mesh)
-            for p, g in zip(params, grads):
-                p.grad = g
+            with annotate("trainer.batch"):
+                batch = shard_batch(batch, self.mesh, self.device)
+                if batch.ndim == 3:
+                    batch = batch[None]
+                batch = _static(graphs, "batch", batch)
+            with annotate("trainer.draws"):
+                drawn = [self._draws(generator, batch.shape[1], self.config.data_aug,
+                                     None if draws is None else draws[i])
+                         for i in range(batch.shape[0])]
+                drawn = [{k: _static(graphs, (k, i), v) for k, v in d.items()}
+                         for i, d in enumerate(drawn)]
+            with annotate("trainer.gradients"):
+                params = list(self.net.parameters())
+                grads = [_output(graphs, ("grad", i), p) for i, p in enumerate(params)]
+                loss, kl = (_output(graphs, name, self.kl_max) for name in ("loss", "kl"))
+                _run(graphs, ("gradients", tuple(batch.shape)),
+                     partial(self._gradients, grads, loss, kl, batch, drawn))
+                all_reduce_(kl, self.mesh, "max")
+                if self.mesh is not None:
+                    # One flat buffer, one collective: the mean over the global batch.
+                    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), self.mesh)
+                    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+                        g.copy_(f.view_as(g))
+                all_reduce_(loss, self.mesh)
+                for p, g in zip(params, grads):
+                    p.grad = g
             self._apply_update(kl, graphs)
         return {"loss": loss.clone(), "kl_at_T": kl.clone(), "kl_max": self.kl_max.clone()}
 
@@ -436,15 +446,16 @@ class Trainer:
         into device scalars; then :meth:`_update_work` runs, eagerly or
         replayed from ``graphs`` (one graph for the steps that update the
         EMA, one for those that skip it); then the count's increment."""
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.step)
-        ema_now = ema_due(self.step, self.ema_cfg, self._ema_scalars)
-        if graphs is None:
-            self._update_work(kl, ema_now, self.optimizer.step)
-        else:
-            self.optimizer.advance()
-            graphs(("update", ema_now),
-                   partial(self._update_work, kl, ema_now, self.optimizer.apply))
+        with annotate("trainer.update"):
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(self.step)
+            ema_now = ema_due(self.step, self.ema_cfg, self._ema_scalars)
+            if graphs is None:
+                self._update_work(kl, ema_now, self.optimizer.step)
+            else:
+                self.optimizer.advance()
+                graphs(("update", ema_now),
+                       partial(self._update_work, kl, ema_now, self.optimizer.apply))
         self.step += 1
 
     def _update_work(self, kl, ema_now: bool, optimizer_step) -> None:
@@ -598,9 +609,10 @@ class Trainer:
             if getattr(cfg, "profile_steps", 0) > 0:
                 # Trace a window of steady-state steps (after the warm-up).
                 if step >= 10 and profiler is None and not profiled:
-                    profiler = self._start_profiler()
+                    profiler = contextlib.ExitStack()
+                    profiler.enter_context(trace(os.path.join(cfg.tensorboard_folder, "profile")))
                 elif profiler is not None and step >= 10 + cfg.profile_steps:
-                    self._stop_profiler(profiler)
+                    profiler.close()
                     profiler, profiled = None, True
             # The last chunk is clamped so that training stops exactly at
             # train_num_steps.
@@ -645,27 +657,13 @@ class Trainer:
                 if early_stopping_counter > 9:
                     break
         if profiler is not None:
-            self._stop_profiler(profiler)
+            profiler.close()
 
         self.final_eval(generator)
         if self.writer is not None:
             self.writer.flush()
             self.writer.close()
         print("Training complete")
-
-    def _start_profiler(self):
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.start()
-        return profiler
-
-    def _stop_profiler(self, profiler):
-        profiler.stop()
-        folder = os.path.join(self.config.tensorboard_folder, "profile")
-        os.makedirs(folder, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(folder, "trace.json"))
 
     # ------------------------------------------------------------ final eval
     def final_eval(self, generator: torch.Generator):

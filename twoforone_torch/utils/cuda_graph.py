@@ -21,6 +21,8 @@ calls: it would be recorded as a constant.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -76,11 +78,21 @@ class StepGraphs:
     which during a capture only records it. The counts of the capture are
     therefore taken back, and a replay adds what the capture recorded.
 
+    Capture counters, process-wide like the kernels' launch counters:
+    ``StepGraphs.captures`` counts first calls of a key (each a warm-up and
+    a capture), ``StepGraphs.capture_s`` adds their host seconds. A loop
+    captures once a key, so a count above a run's steady value is a key
+    captured again (a shape that changed, a new variant). Replays touch
+    neither.
+
     All graphs of one object share a memory pool, so a loop with several
     step variants (the last hop of a strided chain) holds one step's
     activations, not one per variant. Each graph keeps ``fn`` alive, and
     with it every tensor its kernels read.
     """
+
+    captures = 0
+    capture_s = 0.0
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -104,6 +116,7 @@ class StepGraphs:
             graph.replay()
             add_kernel_launches(per_replay)
             return outputs
+        start = time.perf_counter()
         first = self._warm_up(fn)
         before = kernel_launches()
         try:
@@ -112,6 +125,8 @@ class StepGraphs:
             recorded = tuple(a - b for a, b in zip(kernel_launches(), before))
             set_kernel_launches(before)
         self.graphs[key] = (graph, outputs, recorded, fn)
+        StepGraphs.captures += 1
+        StepGraphs.capture_s += time.perf_counter() - start
         return first
 
     def _warm_up(self, fn):

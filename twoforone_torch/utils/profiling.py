@@ -3,10 +3,19 @@
 - :func:`trace`: context manager around ``torch.profiler`` that writes a
   Chrome trace (viewable in Perfetto or ``chrome://tracing``) of the
   enclosed host and device work into a directory.
-- :func:`annotate`: a named span on that trace.
+- :func:`annotate`: a named span on that trace; :data:`SPANS` lists the
+  spans the port's hot loops open and what each covers. With no profiler
+  recording a span costs one attribute read.
 - :class:`PhaseTimer`: wall-clock phase accounting; with ``sync=True`` it
   waits for the CUDA device at each phase boundary, so a phase's time is
   its execution and not its dispatch.
+
+To see where a run's time goes, wrap any call in ``with
+profiling.trace(logdir):`` (or give the trainer ``profile_steps``) and open
+``logdir/trace.json`` in Perfetto: the spans of :data:`SPANS` sit on the
+host's row above the operations they issued, and a gap on the device's
+row lies under the span the host was in. A span never encloses another
+span: each names one phase of a step, not a whole call.
 """
 
 from __future__ import annotations
@@ -18,6 +27,25 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# The spans the port opens, each with what it covers.
+SPANS = {
+    "langevin.step": "one Langevin step's host work: the coefficient's index, the noise draw "
+                     "into its buffer, the replay (off the card, the eager step)",
+    "langevin.frames": "a chunk's saved frames (and forces, potential, kinetic energy where "
+                       "kept) stacked and copied to the host",
+    "langevin.state": "the simulation state's copies to the host",
+    "trainer.batch": "the training batch sharded and copied into its static buffer",
+    "trainer.draws": "the micro-batches' rotations, timesteps and noise drawn and copied into "
+                     "their static buffers",
+    "trainer.gradients": "the gradient half of a training step (replayed on the card) and a "
+                         "mesh's collectives",
+    "trainer.update": "the update's host numbers (learning rate, EMA decay, Adam's count) and "
+                      "the update half (replayed on the card)",
+}
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -36,7 +64,11 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    """Named trace span (shows up in the profiler timeline)."""
+    """Named trace span (shows up in the profiler timeline). When no
+    profiler is recording it is one shared no-op context, so a span in a
+    hot loop costs an attribute read and no ``record_function`` call."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
