@@ -22,11 +22,15 @@
   The draws, the batch and each update's numbers (learning rate, bias
   corrections, EMA decay) go into static buffers and device scalars
   before the replays; a mesh's collectives run between the halves; the
-  host keeps the counts. The eager step runs the same functions, so both
-  give the same bits; the CPU runs it. ``eval_loss`` replays one captured
-  batch the same way.
+  host keeps the counts. The batch is written into a pinned host slot of
+  a :class:`StagingRing` and copied from there into its static buffer
+  without a synchronisation, so the host enqueues the next step while the
+  device runs this one, up to ``STAGING_DEPTH`` batches ahead. The eager
+  step runs the same functions, so both give the same bits; the CPU runs
+  it. ``eval_loss`` replays one captured batch the same way.
 - Each step's host phases are spans (:mod:`twoforone_torch.utils.profiling`):
-  ``trainer.batch``, ``trainer.draws``, ``trainer.gradients`` and
+  ``trainer.batch`` (a wait there is the staging ring's bound on running
+  ahead), ``trainer.draws``, ``trainer.gradients`` and
   ``trainer.update``. ``profile_steps`` = K writes a Chrome trace of K steps
   from step 10 to ``tensorboard_folder/profile/trace.json`` through
   ``profiling.trace``.
@@ -242,6 +246,59 @@ def _output(graphs, name, like: torch.Tensor) -> torch.Tensor:
     return graphs.buffer(name, like.shape, like.dtype)
 
 
+# Slots of a staging ring: the host runs at most this many batches ahead.
+STAGING_DEPTH = 2
+
+
+class StagingRing:
+    """Pinned host slots through which a host batch reaches a device
+    tensor without a stream synchronisation (a pageable copy waits for the
+    stream to drain).
+
+    ``ring(batch, out)`` writes the host array ``batch`` into the next of
+    ``STAGING_DEPTH`` slots kept for ``out``'s shape and dtype (a synchronous host
+    copy: the caller may reuse its array as soon as the call returns),
+    copies that slot into ``out`` with a non-blocking copy on the current
+    stream of ``out``'s device, and records the slot's event after it. A
+    slot is written again only once its event reports that copy done: the
+    one place the host waits, which bounds how far it runs ahead of the
+    device (``STAGING_DEPTH`` batches) and keeps a copy in flight from reading a
+    rewritten slot. Slots are pinned where ``out`` is on a CUDA device.
+    ``event`` makes a slot's event (``record(stream)``, ``query()``,
+    ``synchronize()``).
+
+    Counters, process-wide like ``StepGraphs.captures``: ``staged`` counts
+    the batches copied through a ring, ``waits`` the slot reuses that found
+    the slot's copy still in flight.
+    """
+
+    staged = 0
+    waits = 0
+
+    def __init__(self, event=torch.cuda.Event):
+        self._event = event
+        self.slots = {}  # (shape, dtype) -> [(host tensor, event)] * STAGING_DEPTH
+        self._turn = {}
+
+    def __call__(self, batch, out: torch.Tensor) -> torch.Tensor:
+        key = (tuple(out.shape), out.dtype)
+        if key not in self.slots:
+            self.slots[key] = [(torch.empty(out.shape, dtype=out.dtype, pin_memory=out.is_cuda),
+                                self._event()) for _ in range(STAGING_DEPTH)]
+            self._turn[key] = 0
+        i = self._turn[key]
+        self._turn[key] = (i + 1) % STAGING_DEPTH
+        host, event = self.slots[key][i]
+        if not event.query():
+            StagingRing.waits += 1
+            event.synchronize()
+        host.copy_(torch.as_tensor(batch).reshape(host.shape))
+        out.copy_(host, non_blocking=True)
+        event.record(torch.cuda.current_stream(out.device) if out.is_cuda else None)
+        StagingRing.staged += 1
+        return out
+
+
 class Trainer:
     """Trainer for the CG diffusion model. See TrainConfig for options."""
 
@@ -290,6 +347,8 @@ class Trainer:
         self._step_graphs = graphs_for(self.device)
         self._eval_graphs = graphs_for(self.device)
         self._sample_graphs = graphs_for(self.device)
+        # The graphed step's batch comes through pinned slots on the card.
+        self._staging = StagingRing() if self.device.type == "cuda" else None
         self.optimizer, self.lr_schedule = make_optimizer(self.net, config)
         self.ema_cfg = EMAConfig(beta=config.ema_decay)
         self._ema_scalars = ema_scalars(self.device)
@@ -369,16 +428,24 @@ class Trainer:
         of the JAX package's jitted step): the gradients, then the update.
         The draws, the batch and the update's numbers are filled into static
         buffers and device scalars before the replays, and a mesh's
-        collectives run between the halves. On the CPU both run eagerly;
-        both forms run the same functions, so they give the same bits.
+        collectives run between the halves. The batch goes through the
+        trainer's :class:`StagingRing`: the step waits for the device only
+        where the ring's next slot is still being copied from. On the CPU
+        both run eagerly; both forms run the same functions, so they give
+        the same bits.
         """
         graphs = self._step_graphs
         with float32_products():
             with annotate("trainer.batch"):
-                batch = shard_batch(batch, self.mesh, self.device)
-                if batch.ndim == 3:
-                    batch = batch[None]
-                batch = _static(graphs, "batch", batch)
+                if graphs is not None and self._staging is not None:
+                    shape = tuple(np.shape(batch))
+                    batch = self._staging(batch, graphs.buffer(
+                        "batch", shape if len(shape) == 4 else (1, *shape)))
+                else:
+                    batch = shard_batch(batch, self.mesh, self.device)
+                    if batch.ndim == 3:
+                        batch = batch[None]
+                    batch = _static(graphs, "batch", batch)
             with annotate("trainer.draws"):
                 drawn = [self._draws(generator, batch.shape[1], self.config.data_aug,
                                      None if draws is None else draws[i])

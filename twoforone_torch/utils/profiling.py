@@ -36,7 +36,9 @@ SPANS = {
     "langevin.frames": "a chunk's saved frames (and forces, potential, kinetic energy where "
                        "kept) stacked and copied to the host",
     "langevin.state": "the simulation state's copies to the host",
-    "trainer.batch": "the training batch sharded and copied into its static buffer",
+    "trainer.batch": "the batch written into a pinned staging slot and copied, without a "
+                     "synchronisation, into its static buffer (a wait here is the ring's bound "
+                     "on running ahead); off the card, copied to the device",
     "trainer.draws": "the micro-batches' rotations, timesteps and noise drawn and copied into "
                      "their static buffers",
     "trainer.gradients": "the gradient half of a training step (replayed on the card) and a "
