@@ -158,6 +158,8 @@ EDGES = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=Fals
     (20, 100, "cuda", "never"),  # below the gate's chain count
     (20, None, "cuda", "never"),
     (56, 1024, "cuda", "never"),  # above CLX_MAX_N
+    (35, 100, "cuda", "never"),  # villin at the paper's 100 chains
+    (35, 1000, "cuda", "never"),
     (10, 100, "cpu", "never"),
     (20, 1024, "cpu", "never"),
 ])
