@@ -47,10 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from twoforone_torch.ops.attention import (
-    edge_biased_attention,
-    geometric_edge_attention_packed,
-)
+from twoforone_torch.ops.attention import edge_biased_attention, geometric_attention_heads
 from twoforone_torch.ops.geometry import center_zero
 from twoforone_torch.utils.convert import params_from_jax
 from twoforone_torch.utils.device import float32_products, resolve_device
@@ -71,7 +68,14 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
 
 
 class GatedResidual(nn.Module):
-    """Sigmoid-gated residual merge."""
+    """Sigmoid-gated residual merge, ``x·g + res·(1 − g)`` with
+    ``g = sigmoid(proj([x, res, x − res]))``.
+
+    Computed without the concatenation: the projection's three blocks fold
+    into ``x·ga + res·gh`` with ``ga = w_x + w_d`` and ``gh = w_res − w_d``
+    (taken from ``proj.weight`` at each call, so gradients reach it), and the
+    merge is one ``lerp``, ``res + g·(x − res)``.
+    """
 
     def __init__(self, dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -79,13 +83,33 @@ class GatedResidual(nn.Module):
         self.proj = nn.Linear(3 * dim, 1, bias=False)
 
     def forward(self, x, res):
-        gate = torch.sigmoid(dense(self.proj, torch.cat([x, res, x - res], dim=-1), self.dtype))
-        return x * gate + res * (1.0 - gate)
+        c = x.shape[-1]
+        w = self.proj.weight.view(3, c)  # rows: x, res, x - res
+        ga = _cast(w[0] + w[2], self.dtype)
+        gh = _cast(w[1] - w[2], self.dtype)
+        logit = torch.mv(x.reshape(-1, c), ga).addmv_(res.reshape(-1, c), gh)
+        gate = torch.sigmoid(logit).view(*x.shape[:-1], 1)
+        return torch.lerp(res, x, gate)
+
+
+def _heads(t: torch.Tensor, b: int, n: int, h: int, dh: int) -> torch.Tensor:
+    """(B·N, H·dh) rows -> (H, B, N, dh), heads first and contiguous: the
+    attention core's batches."""
+    return t.view(b * n, h, dh).transpose(0, 1).contiguous().view(h, b, n, dh)
 
 
 class Attention(nn.Module):
     """Edge-biased attention over beads, geometric (production) or general
-    (explicit edge tensor) path; identical math."""
+    (explicit edge tensor) path; identical math.
+
+    The geometric path projects the rows with whole products, runs the
+    attention core (:func:`geometric_attention_heads`) on (H·B, N, ·)
+    batches, and returns to rows for ``to_out``: one copy into the
+    head-major layout per projection and one out, and no concatenation. The
+    keys and values carry their diff channel ``x_j K_diff``; the rest of the
+    edge values reaches ``to_out`` through folded weights, since each row of
+    attention sums to 1.
+    """
 
     def __init__(self, dim: int, edge_dim: int, heads: int = 8, dim_head: int = 64,
                  dtype: Optional[torch.dtype] = None):
@@ -99,6 +123,51 @@ class Attention(nn.Module):
         self.to_out = nn.Linear(inner, dim)
 
     def forward(self, nodes, edges=None, geom=None):
+        if geom is None:
+            return self._forward_edges(nodes, edges)
+        b, n, c = nodes.shape
+        h, dh, dt = self.heads, self.dim_head, self.dtype
+        inner = h * dh
+        x, x_heads, sq_heads, w_emb, b_emb, has_diff, has_dist = geom
+        rows = _cast(nodes, dt).reshape(b * n, c)
+        x_rows = _cast(x.reshape(b * n, 3), dt)
+        # Fold edge_embedding and edges_to_kv into one affine map of the raw
+        # channels: K_comb (De, H·dh), b_comb (H·dh).
+        w_e = _cast(self.edges_to_kv.weight, dt)  # (H·dh, De)
+        k_comb = _cast(w_emb, dt) @ w_e.t()
+        b_comb = torch.addmv(_cast(self.edges_to_kv.bias, dt), w_e, _cast(b_emb, dt))
+        k_dist = k_comb[3 if has_diff else 0].view(h, dh) if has_dist else None
+
+        # Each projection is one product over the rows (so is its weight's
+        # gradient), copied once into the core's head-major layout; the
+        # softmax scale rides in q's weights, and the keys and values carry
+        # their diff channel x_j K_diff.
+        scale = dh**-0.5
+        w_kv = _cast(self.to_kv.weight, dt)
+        b_k, b_v = _cast(self.to_kv.bias, dt).view(2, inner)
+        q = F.linear(rows, _cast(self.to_q.weight, dt) * scale, _cast(self.to_q.bias, dt) * scale)
+        k = F.linear(rows, w_kv[:inner], b_k)
+        v = F.linear(rows, w_kv[inner:], b_v)
+        if has_diff:
+            k.addmm_(x_rows, k_comb[:3])
+            v.addmm_(x_rows, k_comb[:3])
+        o, f_dist = geometric_attention_heads(
+            *(_heads(t, b, n, h, dh) for t in (q, k, v)), x_heads, sq_heads, k_dist
+        )
+
+        # Back to rows for to_out. Each row of attention sums to 1, so the
+        # rest of the edge values reaches its output through folded weights:
+        # b_comb in the bias, -x_i (K_diff W_out), f_dist_h (k_dist_h W_out_h).
+        w_out = _cast(self.to_out.weight, dt)  # (C, H·dh)
+        b_out = torch.addmv(_cast(self.to_out.bias, dt), w_out, b_comb)
+        y = F.linear(o.view(h, b * n, dh).transpose(0, 1).reshape(b * n, inner), w_out, b_out)
+        if has_diff:
+            y.addmm_(x_rows, torch.mm(k_comb[:3], w_out.t()).neg_())
+        if f_dist is not None:
+            y.addmm_(f_dist.view(h, b * n).t(), torch.einsum("chd,hd->hc", w_out.view(c, h, dh), k_dist))
+        return y.view(b, n, c)
+
+    def _forward_edges(self, nodes, edges):
         b, n, _ = nodes.shape
         h, dh, dt = self.heads, self.dim_head, self.dtype
         q = dense(self.to_q, nodes, dt).view(b, n, h, dh)
@@ -107,22 +176,9 @@ class Attention(nn.Module):
         v = v.reshape(b, n, h, dh)
         w_e = _cast(self.edges_to_kv.weight.t(), dt)  # (De, inner)
         b_e = _cast(self.edges_to_kv.bias, dt)
-        scale = dh**-0.5
-        if geom is not None:
-            x, w_emb, b_emb, has_diff, has_dist = geom
-            # Fold edge_embedding and edges_to_kv into one affine map of the
-            # raw channels: K_comb (C, H, dh), b_comb (H, dh).
-            k_comb = (_cast(w_emb, dt) @ w_e).view(-1, h, dh)
-            b_comb = (_cast(b_emb, dt) @ w_e + b_e).view(h, dh)
-            k_diff = k_comb[:3] if has_diff else None
-            k_dist = k_comb[3 if has_diff else 0] if has_dist else None
-            out = geometric_edge_attention_packed(
-                q, k, v, _cast(x, dt), k_diff, k_dist, b_comb, scale
-            )
-        else:
-            out = edge_biased_attention(
-                q, k, v, edges, w_e.view(-1, h, dh), b_e.view(h, dh), scale
-            )
+        out = edge_biased_attention(
+            q, k, v, edges, w_e.view(-1, h, dh), b_e.view(h, dh), dh**-0.5
+        )
         return dense(self.to_out, out.reshape(b, n, h * dh), dt)
 
 
@@ -241,26 +297,39 @@ class GraphTransformer(nn.Module):
         if n != self.num_beads:
             raise ValueError(f"expected {self.num_beads} beads, got {n}")
         dt = self.dtype
-        x = _cast(x, dt)
-        onehot = torch.eye(n, dtype=x.dtype, device=x.device).expand(b, n, n)
-        t_feat = t.to(x.dtype).reshape(b, 1, 1).expand(b, n, 1)
+        # The coordinates in the compute dtype. The geometric edges cast
+        # them again at each use, so that their gradients meet in the
+        # input's dtype.
+        x_in, x = x, _cast(x, dt)
+        # LayerNorm has no dtype: at least float32 in, statistics and output.
+        at_least_f32 = torch.promote_types(x.dtype, torch.float32)
+        # The node features [one-hot, x?, t] times the embedding: the one-hot
+        # picks the weight's rows, t scales its last one. Summed in the
+        # product's order, then the bias, in at least float32 from operands
+        # in the compute dtype, and rounded once.
+        w = _cast(self.node_embedding.weight, dt).to(at_least_f32)  # (C, N + 3·abs + 1)
+        bias = _cast(self.node_embedding.bias, dt).to(at_least_f32)
+        t_feat = t.to(x.dtype).to(at_least_f32).view(b, 1, 1)
+        nodes = torch.addcmul(w[:, :n].t().contiguous(), t_feat, w[:, -1])
         if self.use_abs_coords:
-            node_in = torch.cat([onehot, x, t_feat], dim=-1)
-        else:
-            node_in = torch.cat([onehot, t_feat], dim=-1)
-        nodes = dense(self.node_embedding, node_in, dt)
+            nodes = nodes + x.to(at_least_f32) @ w[:, n:n + 3].t()
+        nodes = nodes + bias
+        nodes = _cast(nodes, dt)
 
         w_emb = self.edge_embedding.weight.t()  # (edge_in_dim, C)
         b_emb = self.edge_embedding.bias
         if self.use_geometric_edges:
-            geom = (x, w_emb, b_emb, self.use_intrinsic_coords, self.use_distances)
+            has_diff, has_dist = self.use_intrinsic_coords, self.use_distances
+            x_heads = sq_heads = None
+            if has_dist:
+                x_heads = _cast(x_in.expand(self.heads, b, n, 3), dt).contiguous()
+                sq_heads = torch.sum(x_heads * x_heads, dim=-1, keepdim=True)
+            geom = (x_in, x_heads, sq_heads, w_emb, b_emb, has_diff, has_dist)
             edges = None
         else:
             geom = None
             edges = self.edge_features(x) @ _cast(w_emb, dt) + _cast(b_emb, dt)
 
-        # LayerNorm has no dtype: at least float32 in, statistics and output.
-        at_least_f32 = torch.promote_types(x.dtype, torch.float32)
         for i in range(self.n_layers):
             attn_in = getattr(self, f"layers_{i}_attn_norm")(nodes.to(at_least_f32))
             attn_out = getattr(self, f"layers_{i}_attn")(attn_in, edges=edges, geom=geom)

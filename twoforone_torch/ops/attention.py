@@ -11,7 +11,9 @@ two geometric forms fold the (linear) edge pipeline onto the raw coordinate
 channels so that no N^2 feature tensor exists. All three compute the same
 function up to rounding; ``edge_biased_attention_naive`` is the direct
 form, kept as the tests' oracle. Layouts match the JAX package: q, k, v are
-(B, N, H, dh), coordinates (B, N, 3).
+(B, N, H, dh), coordinates (B, N, 3). The network runs the packed form's
+head-major core, :func:`geometric_attention_heads`, on (H, B, N, dh)
+tensors.
 """
 
 from __future__ import annotations
@@ -53,68 +55,104 @@ def edge_biased_attention_naive(q, k, v, edges, w_e, b_e, scale):
     return torch.einsum("bhij,bijhd->bihd", attn, v_full)
 
 
+class _Scores(torch.autograd.Function):
+    """``q @ kᵀ`` per batch, whose backward returns k's gradient in k's own
+    layout: autograd's ``bmm`` gives it transposed, which the head-major k,
+    viewed from (H, B, N, dh), would then copy."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k.transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k = ctx.saved_tensors
+        return torch.bmm(grad, k), torch.bmm(grad.transpose(1, 2), q)
+
+
+class _AttnValues(torch.autograd.Function):
+    """``attn @ v`` per batch, whose backward takes ``grad @ vᵀ`` through
+    :class:`_Scores`, so that a second derivative also returns v's gradient
+    in v's own layout."""
+
+    @staticmethod
+    def forward(ctx, attn, v):
+        ctx.save_for_backward(attn, v)
+        return torch.bmm(attn, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        attn, v = ctx.saved_tensors
+        return _Scores.apply(grad, v), torch.bmm(attn.transpose(1, 2), grad)
+
+
+def geometric_attention_heads(q, k, v, x_heads, sq_heads, k_dist):
+    """Head-major core of the geometric edge attention (the production
+    form): batched products over the H·B head-chain pairs, no
+    concatenation.
+
+    The edge keys and values are ``(x_j − x_i) K_diff + dist_ij k_dist +
+    b_comb``. Row-constant score terms (``q·b_comb``, ``−(q·K_diff)·x_i``,
+    ``(q·k_dist)·sq_i``) cancel in the softmax, and each row of the attention
+    sums to 1, so the caller puts the diff channel's per-j part into the
+    keys and values (``k_j + x_j K_diff``, ``v_j + x_j K_diff``) and adds the
+    per-row rest (``b_comb − x_i K_diff``) to the output. The distance
+    channel stays here, as rank-3 products of its own after ``q·kᵀ``:
+
+        sim_ij = q_i·k_j + (q_i·k_dist)(sq_j − 2 x_i·x_j)
+        out_i  = Σ_j attn_ij v_j
+
+    Args:
+      q, k, v:  (H, B, N, dh) contiguous, heads first; q carries the softmax
+                scale, k and v the diff channel.
+      x_heads:  (H, B, N, 3) the coordinates repeated per head, read with
+                ``k_dist``.
+      sq_heads: (H, B, N, 1) their squared norms, read with ``k_dist``.
+      k_dist:   (H, dh) combined dist kernel, or None.
+    Returns ``(o, f_dist)`` as (H, B, N, ·): ``o_i = Σ_j attn_ij v_j`` and,
+    with ``k_dist``, ``f_dist_i = Σ_j attn_ij dist_ij`` (the distance
+    channel of the output is ``f_dist·k_dist``), else None.
+    """
+    h, b, n, dh = q.shape
+    g = h * b
+    sim = _Scores.apply(q.view(g, n, dh), k.view(g, n, dh))
+    if k_dist is not None:
+        x = x_heads.view(g, n, 3)
+        sq = sq_heads.view(g, n, 1)
+        q_ks = torch.bmm(q.view(h, b * n, dh), k_dist.unsqueeze(-1)).view(g, n, 1)
+        sim.baddbmm_(-2.0 * q_ks * x, x.transpose(1, 2))
+        sim.baddbmm_(q_ks, sq.transpose(1, 2))
+    attn = torch.softmax(sim, dim=-1)
+    o = _AttnValues.apply(attn, v.view(g, n, dh)).view(h, b, n, dh)
+    if k_dist is None:
+        return o, None
+    xbar = torch.bmm(attn, x)
+    f_dist = torch.bmm(attn, sq) + sq - 2.0 * torch.sum(x * xbar, dim=-1, keepdim=True)
+    return o, f_dist.view(h, b, n, 1)
+
+
 def geometric_edge_attention_packed(q, k, v, x, k_diff, k_dist, b_comb, scale):
-    """Geometric edge attention with the edge terms packed into one Q·K^T
-    and one attn·V contraction per side (the production form).
-
-    Row-constant score terms (``q·b_comb``, ``-(q·K_diff)·x_i``,
-    ``(q·k_dist)·sq_i``) cancel in the softmax and are dropped; the
-    surviving terms are linear in per-j features and ride as extra channels:
-
-        q̃_i = [scale·q_i,  xcoef_i,  q·k_dist]
-        k̃_j = [k_j,        x_j,      sq_j    ]
-        xcoef_i = scale·(q_i K_diff − 2 (q_i·k_dist) x_i)
+    """Geometric edge attention in the JAX package's layout, computed by
+    :func:`geometric_attention_heads` (the production form).
 
     Args/returns: as :func:`geometric_edge_attention`.
     """
     b_, n, h, dh = q.shape
-    has_diff = k_diff is not None
-    has_dist = k_dist is not None
-    qs = q * scale
-    parts_q, parts_k, parts_v = [qs], [k], [v]
-    if has_diff or has_dist:
-        xh = x[:, :, None, :].expand(b_, n, h, 3).to(q.dtype)
-        parts_k.append(xh)
-        parts_v.append(xh)
-        xcoef = None
-        if has_diff:
-            xcoef = torch.einsum("bihd,chd->bihc", qs, k_diff)
-        if has_dist:
-            q_ks = torch.einsum("bihd,hd->bih", qs, k_dist)
-            gram_coef = -2.0 * q_ks[..., None] * x[:, :, None, :].to(q.dtype)
-            xcoef = gram_coef if xcoef is None else xcoef + gram_coef
-        parts_q.append(xcoef)
-    if has_dist:
-        sq = torch.sum(x * x, dim=-1).to(q.dtype)  # (B, N)
-        sqh = sq[:, :, None, None].expand(b_, n, h, 1)
-        parts_k.append(sqh)
-        parts_v.append(sqh)
-        parts_q.append(q_ks[..., None])
-    qt = torch.cat(parts_q, dim=-1)
-    kt = torch.cat(parts_k, dim=-1)
-    vt = torch.cat(parts_v, dim=-1)
-
-    attn = torch.softmax(torch.einsum("bihe,bjhe->bhij", qt, kt), dim=-1)
-    ot = torch.einsum("bhij,bjhe->bihe", attn, vt)
-
-    out = ot[..., :dh] + b_comb[None, None]  # rows of attn sum to 1
-    idx = dh
-    if has_diff or has_dist:
-        xbar = ot[..., idx : idx + 3]
-        idx += 3
-    if has_diff:
-        out = out + torch.einsum(
-            "bihc,chd->bihd", xbar - x[:, :, None, :].to(q.dtype), k_diff
-        )
-    if has_dist:
-        sqbar = ot[..., idx]
-        fdist = (
-            sqbar
-            + sq[:, :, None]
-            - 2.0 * torch.sum(x[:, :, None, :].to(q.dtype) * xbar, dim=-1)
-        )
-        out = out + fdist[..., None] * k_dist[None, None]
-    return out
+    q, k, v = (t.permute(2, 0, 1, 3) for t in (q, k, v))
+    x_heads = x.to(q.dtype).expand(h, b_, n, 3)
+    out = b_comb.view(h, 1, 1, dh)  # rows of attn sum to 1
+    if k_diff is not None:
+        x_k = torch.einsum("hbjc,chd->hbjd", x_heads, k_diff)
+        k, v, out = k + x_k, v + x_k, out - x_k
+    o, f_dist = geometric_attention_heads(
+        (q * scale).contiguous(), k.contiguous(), v.contiguous(), x_heads.contiguous(),
+        torch.sum(x_heads * x_heads, dim=-1, keepdim=True), k_dist,
+    )
+    out = out + o
+    if f_dist is not None:
+        out = out + f_dist * k_dist.view(h, 1, 1, dh)
+    return out.permute(1, 2, 0, 3)
 
 
 def geometric_edge_attention(q, k, v, x, k_diff, k_dist, b_comb, scale):
