@@ -288,6 +288,70 @@ def test_a_graph_keeps_its_function_alive():
     assert ref() is not None
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "stand_in"])
+def test_static_output_and_run_give_the_eager_loop_or_the_replay(graphed):
+    """The seam every captured loop is written through. With no graphs:
+    ``static`` gives the value itself, ``output`` a new zeroed tensor, and
+    ``run`` calls the function. With graphs: both give the same buffer at
+    every call, and ``run`` captures at the first call and replays after,
+    on what the buffers then hold."""
+    graphs = StandInGraphs() if graphed else None
+    calls, given, seen, zeroed = [], [], [], []
+    for k in range(3):
+        value = torch.full((3,), float(k + 1))
+        a = cuda_graph.static(graphs, "a", value)
+        out = cuda_graph.output(graphs, "out", value)
+        given.append(value)
+        seen.append((a, out))
+        zeroed.append(not out.any())
+
+        def fn():
+            calls.append(k)
+            out.copy_(2.0 * a)
+            return a + 1.0
+
+        got = cuda_graph.run(graphs, "k", fn)
+        assert torch.equal(out, 2.0 * value) and torch.equal(got, value + 1.0)
+    if graphed:
+        a0, out0 = graphs.buffer("a", (3,)), graphs.buffer("out", (3,))
+        assert all(a is a0 and out is out0 for a, out in seen)
+        assert calls == [0, 0] and graphs.graphs["k"][0].replays == 2
+    else:
+        assert all(a is v and out is not v for (a, out), v in zip(seen, given))
+        assert all(zeroed) and len({id(out) for _, out in seen}) == 3
+        assert calls == [0, 1, 2]
+
+
+def test_only_the_seam_tells_eager_from_replayed():
+    """No function of the package is a second, graphed form of a loop, and
+    outside ``utils/cuda_graph.py`` a graphs object is compared with None
+    only where ``Trainer._train_step`` chooses the staging ring."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(cuda_graph.__file__).resolve().parents[1]
+    graphed, compared = [], []
+
+    def visit(node, path, where):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            where = node.name
+            if node.name.endswith("_graphed"):
+                graphed.append(f"{path}::{node.name}")
+        if isinstance(node, ast.Compare) and path != "utils/cuda_graph.py":
+            operands = [node.left, *node.comparators]
+            if (any(isinstance(o, ast.Constant) and o.value is None for o in operands)
+                    and any(ast.unparse(o).endswith("graphs") for o in operands)):
+                compared.append(f"{path}::{where}")
+        for child in ast.iter_child_nodes(node):
+            visit(child, path, where)
+
+    for file in sorted(root.rglob("*.py")):
+        path = file.relative_to(root).as_posix()
+        visit(ast.parse(file.read_text()), path, None)
+    assert graphed == []
+    assert compared == ["train/trainer.py::_train_step"]
+
+
 # --------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():

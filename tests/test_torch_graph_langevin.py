@@ -12,6 +12,8 @@ loop on the card (``python -m pytest tests/test_torch_graph_langevin.py -m
 cuda --noconftest``; no JAX is imported).
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,7 @@ from twoforone_torch.core.diffusion import GaussianDiffusion
 from twoforone_torch.dynamics.langevin import LangevinDiffusion
 from twoforone_torch.models.graph_transformer import GraphTransformer, init_params
 from twoforone_torch.ops import fused_score_cl as fcl
-from twoforone_torch.utils.cuda_graph import kernel_launches, set_kernel_launches
+from twoforone_torch.utils.cuda_graph import kernel_launches, run, set_kernel_launches, static
 
 N = 6
 EDGES = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
@@ -120,28 +122,28 @@ def test_graphed_loop_takes_injected_noise(friction):
 
 @pytest.mark.parametrize("friction", [1.0, None], ids=["baoab", "overdamped"])
 def test_captured_step_on_static_buffers_equals_one_step(friction):
-    """The function a graph records, run on the static buffers, against
-    ``one_step`` from the same state with the same noise and beta, over
-    steps of different betas."""
+    """The step body ``simulate`` runs, captured once and replayed on the
+    static buffers, against ``one_step`` from the same state with the same
+    noise and beta, over steps of different betas."""
     ld = _ld(friction)
     sim = ld.sim
     graphs = StandInGraphs()
-    sim._graphs = graphs
     x0, v0 = sim._init_state()
     x = graphs.buffer("x", x0.shape).copy_(x0)
     v = None if v0 is None else graphs.buffer("v", v0.shape).copy_(v0 + 0.3)
-    advance = sim._graphed_step(x, v)
     betas = np.array([sim.beta, 0.9 * sim.beta, 1.1 * sim.beta], np.float32)
     coefs = torch.from_numpy(np.asarray(sim._step_coefficients(betas), np.float32))
     ex, ev = x0, None if v0 is None else v0 + 0.3
-    draw = sim._draw_noise
+    key = ("step", tuple(x.shape))
     for j in range(3):
-        noise = draw(x)
-        sim._draw_noise = lambda like, noise=noise: noise
-        _, forces = advance(coefs[j])
+        noise = sim._draw_noise(x)
+        step = partial(sim._step, x, v, static(graphs, "coef", coefs[j]),
+                       static(graphs, "noise", noise))
+        _, forces = run(graphs, key, step)
         ex, ev, _, ef = sim.one_step(ex, ev, float(betas[j]), noise)
         assert torch.equal(x, ex) and torch.equal(forces, ef)
         assert (v is None and ev is None) or torch.equal(v, ev)
+    assert graphs.warm_ups == 1 and graphs.graphs[key][0].replays == 2
 
 
 @pytest.mark.parametrize("friction", [1.0, None], ids=["baoab", "overdamped"])

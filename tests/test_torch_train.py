@@ -367,7 +367,11 @@ def _ala2_trainer(tmp_path, name, **overrides):
 
 
 def _sgd(trainer, lr):
-    trainer.optimizer = torch.optim.SGD(trainer.net.parameters(), lr=lr)
+    """SGD(lr) in the trainer's two halves of an update: nothing for the
+    host (``advance``), then the update (``apply``)."""
+    sgd = torch.optim.SGD(trainer.net.parameters(), lr=lr)
+    sgd.advance, sgd.apply = (lambda: None), sgd.step
+    trainer.optimizer = sgd
     trainer.lr_schedule = lambda count: lr
 
 

@@ -12,9 +12,9 @@ What differs from the JAX module:
 
 - a reverse chain is a Python loop under ``torch.no_grad()`` (the score
   function opens ``enable_grad`` itself where it differentiates an energy);
-  on the card the sampling closures of the plain network replay each step
-  from a CUDA graph instead, the counterpart of the JAX package's jitted
-  ``lax.scan``;
+  given ``graphs`` (on the card, the sampling closures of the plain network)
+  the same loop replays each step from a CUDA graph, the counterpart of the
+  JAX package's jitted ``lax.scan`` (see :func:`p_sample_loop`);
 - random numbers come from an explicit ``torch.Generator`` on the run's
   device, or from a noise hook ``noise(tag, shape)`` with ``tag = "init"``
   for the starting state and the integer timestep for each step, so that a
@@ -49,7 +49,7 @@ import torch
 from twoforone_torch.core.schedules import DiffusionBuffers, extract, make_buffers
 from twoforone_torch.ops.geometry import center_zero
 from twoforone_torch.parallel.mesh import entry_device, gather, local_rows, mesh_size
-from twoforone_torch.utils.cuda_graph import graphs_for
+from twoforone_torch.utils.cuda_graph import graphs_for, output, run, static
 from twoforone_torch.utils.device import resolve_device
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x, t_norm) -> eps_hat
@@ -172,19 +172,52 @@ def _chain_start(buf, shape, generator, noise, device, mesh=None):
     return buf.to(device), draw, center_zero(draw("init", tuple(shape)))
 
 
+def _timestep(t_scalar: int, device) -> torch.Tensor:
+    """``t_scalar`` as a 0-d long tensor on ``device``: a fill, no copy from
+    the host."""
+    return torch.full((), t_scalar, dtype=torch.long, device=device)
+
+
+def _at(values, t):
+    """``values[t]`` for a 0-d long device tensor ``t``, as a 0-d tensor,
+    without reading ``t`` back to the host."""
+    return values.index_select(0, t.view(1)).view(())
+
+
+def _settle(x, out):
+    """The end of every reverse step: ``out`` clamped to +-1000 (the blow-up
+    guard), centred, written into the chain state ``x``."""
+    x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
+
+
 @torch.no_grad()
 def p_sample_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=None,
-                  objective: str = "pred_noise", noise=None, device="cuda", mesh=None):
+                  objective: str = "pred_noise", noise=None, device="cuda", mesh=None,
+                  graphs=None):
     """Full ancestral reverse chain, T score evaluations. The blow-up guard
     (clamp to +-1000) is applied after every step. ``mesh``: see the module
-    docstring (``shape[0]`` must be a multiple of its size)."""
+    docstring (``shape[0]`` must be a multiple of its size).
+
+    ``graphs`` (a :class:`~twoforone_torch.utils.cuda_graph.StepGraphs`; None
+    runs eagerly) replays each step from a graph. The step reads the chain
+    state ``"x"``, its noise ``"noise"`` and its timestep (0-d long ``"t"``)
+    through :func:`~twoforone_torch.utils.cuda_graph.static`, so one graph
+    serves every step of a chain and of later chains of its shape; the draws
+    stay outside it, so the generator, the noise hook and a mesh's rows are
+    the eager loop's, and so are the bits. A replay keeps the host timestep
+    of its capture, so a graphed score function reads t from the tensor
+    (``scalar_t`` unset; see :func:`_model_output`)."""
     buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
+    x = static(graphs, "x", mol)
+
+    def step(t, z, t_scalar):
+        _settle(x, p_sample(buf, score_fn, x, t.expand(x.shape[0]), z, objective, t_scalar))
+
     for t_scalar in range(buf.num_timesteps - 1, -1, -1):
-        t = torch.full((mol.shape[0],), t_scalar, dtype=torch.long, device=mol.device)
-        mol = p_sample(buf, score_fn, mol, t, draw(t_scalar, tuple(shape)), objective,
-                       t_scalar)
-        mol = center_zero(mol.clamp(-1000.0, 1000.0))
-    return mol
+        z = static(graphs, "noise", draw(t_scalar, tuple(shape)))
+        t = static(graphs, "t", _timestep(t_scalar, x.device))
+        run(graphs, ("ancestral", x.shape), partial(step, t, z, t_scalar))
+    return x.clone()
 
 
 def ddim_timestep_ladder(num_timesteps: int, sample_steps: int):
@@ -265,44 +298,67 @@ def _ddim_update(buf, score_fn, x, t, t_prev, noise, eta, objective, clip_x0, t_
 def ddim_sample_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=None,
                      sample_steps: int = 100, eta: float = 0.0,
                      objective: str = "pred_noise", clip_x0: Optional[float] = 10.0,
-                     noise=None, device="cuda", mesh=None):
+                     noise=None, device="cuda", mesh=None, graphs=None):
     """Strided reverse chain: ``sample_steps`` score evaluations instead of
-    T. Clamp, centring, the per-step noise tags and ``mesh`` follow
-    :func:`p_sample_loop`."""
+    T. Clamp, centring, the per-step noise tags, ``mesh`` and ``graphs``
+    follow :func:`p_sample_loop`; the next timestep is the 0-d long
+    ``"t_prev"``, and the final hop has a graph of its own."""
     buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
+    x = static(graphs, "x", mol)
+    b = x.shape[0]
+
+    def step(t, t_prev, z, last, t_scalar):
+        _settle(x, _ddim_update(buf, score_fn, x, t.expand(b),
+                                None if last else t_prev.expand(b), z, eta, objective,
+                                clip_x0, t_scalar))
+
     taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
     for tau, tau_prev in zip(taus.tolist(), prev_taus.tolist()):
-        mol = ddim_step(buf, score_fn, mol, tau, tau_prev, draw(tau, tuple(shape)), eta,
-                        objective, clip_x0)
-        mol = center_zero(mol.clamp(-1000.0, 1000.0))
-    return mol
+        z = static(graphs, "noise", draw(tau, tuple(shape)))
+        t = static(graphs, "t", _timestep(tau, x.device))
+        t_prev = static(graphs, "t_prev", _timestep(max(tau_prev, 0), x.device))
+        run(graphs, ("ddim", tau_prev < 0, x.shape),
+            partial(step, t, t_prev, z, tau_prev < 0, tau))
+    return x.clone()
 
 
 @torch.no_grad()
 def dpm_solver_pp_2m_loop(buf: DiffusionBuffers, score_fn: ScoreFn, shape, generator=None,
                           sample_steps: int = 100, objective: str = "pred_noise",
                           clip_x0: Optional[float] = 10.0, noise=None, device="cuda",
-                          mesh=None):
+                          mesh=None, graphs=None):
     """DPM-Solver++(2M): second-order multistep ODE sampler (Lu et al. 2022,
     data-prediction form). One score evaluation per step like DDIM; each
     update extrapolates the x0 prediction linearly in log-SNR from the
     previous evaluation. The first step and the final hop (``tau_prev < 0``:
     abar -> 1, sigma -> 0, lambda -> +inf) are first order, and the final
     update is exactly ``x = x0_hat``. Deterministic after the initial draw.
-    ``mesh`` as in :func:`p_sample_loop`.
+    ``mesh`` and ``graphs`` as in :func:`p_sample_loop` (with ``"t_prev"``
+    as in :func:`ddim_sample_loop`); the previous x0 estimate and lambda are
+    the step's outputs ``"x0_prev"`` and ``"lam_prev"``, and the first update
+    and the final hop have graphs of their own.
     """
     buf, _, mol = _chain_start(buf, shape, generator, noise, device, mesh)
+    x = static(graphs, "x", mol)
+    x0_prev = output(graphs, "x0_prev", x)
+    lam_prev = output(graphs, "lam_prev", buf.alphas_cumprod[0])
+
+    def step(t, t_prev, first, last, t_scalar):
+        abar_t = None if last else _at(buf.alphas_cumprod, t_prev)
+        out, x0_s, lam_s = _dpm2m_update(
+            buf, score_fn, x, t.expand(x.shape[0]), _at(buf.alphas_cumprod, t), abar_t,
+            None if first else x0_prev, lam_prev, objective, clip_x0, t_scalar)
+        _settle(x, out)
+        x0_prev.copy_(x0_s)
+        lam_prev.copy_(lam_s)
+
     taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
-    b = mol.shape[0]
-    x0_prev = lam_prev = None
-    for tau, tau_prev in zip(taus.tolist(), prev_taus.tolist()):
-        t = torch.full((b,), tau, dtype=torch.long, device=mol.device)
-        abar_t = None if tau_prev < 0 else buf.alphas_cumprod[tau_prev]
-        mol, x0_prev, lam_prev = _dpm2m_update(buf, score_fn, mol, t, buf.alphas_cumprod[tau],
-                                               abar_t, x0_prev, lam_prev, objective, clip_x0,
-                                               tau)
-        mol = center_zero(mol.clamp(-1000.0, 1000.0))
-    return mol
+    for i, (tau, tau_prev) in enumerate(zip(taus.tolist(), prev_taus.tolist())):
+        t = static(graphs, "t", _timestep(tau, x.device))
+        t_prev = static(graphs, "t_prev", _timestep(max(tau_prev, 0), x.device))
+        run(graphs, ("dpm2m", i == 0, tau_prev < 0, x.shape),
+            partial(step, t, t_prev, i == 0, tau_prev < 0, tau))
+    return x.clone()
 
 
 def _log_snr_half(abar):  # lambda = log(alpha/sigma) = 0.5 log(abar/(1-abar))
@@ -331,111 +387,6 @@ def _dpm2m_update(buf, score_fn, x, t, abar_s, abar_t, x0_prev, lam_prev, object
         coef = 1.0 / (2.0 * ((lam_s - lam_prev) / h))
         d = (1.0 + coef) * x0_s - coef * x0_prev
     return (sigma_t / sigma_s) * x - alpha_t * (exp_neg_h - 1.0) * d, x0_s, lam_s
-
-
-# ---------------------------------------------------------------------------
-# Reverse chains replayed from CUDA graphs
-# ---------------------------------------------------------------------------
-# The counterparts of the JAX package's jitted ``lax.scan`` chains for the
-# plain network on the card. One reverse step is captured with its timesteps
-# in 0-d device scalars, so one graph serves every step of a chain and of the
-# later calls of its sampling closure (the final hop of the strided chains,
-# and the first DPM-Solver++(2M) update, have graphs of their own). The draws
-# stay outside the graph, made by the chain's draw function into a static
-# buffer before each replay, so the generator, the noise hook and a mesh's
-# rows are the eager loop's, and so are the bits.
-
-def _chain_buffers(graphs, mol):
-    """The static state of a graphed chain: x (set to ``mol``), the step's
-    noise and its timestep."""
-    x = graphs.buffer("x", mol.shape).copy_(mol)
-    return x, graphs.buffer("noise", mol.shape), graphs.buffer("t", (), torch.long)
-
-
-def _at(values, t):
-    """``values[t]`` for a 0-d long device tensor ``t``, as a 0-d tensor,
-    without reading ``t`` back to the host."""
-    return values.index_select(0, t.view(1)).view(())
-
-
-@torch.no_grad()
-def _p_sample_loop_graphed(graphs, buf, score_fn, shape, generator=None,
-                           objective: str = "pred_noise", noise=None, device="cuda", mesh=None):
-    """:func:`p_sample_loop` with each step replayed from ``graphs`` (a
-    :class:`~twoforone_torch.utils.cuda_graph.StepGraphs`)."""
-    buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
-    x, z, t = _chain_buffers(graphs, mol)
-    b = x.shape[0]
-
-    def step():
-        out = p_sample(buf, score_fn, x, t.expand(b).contiguous(), z, objective)
-        x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
-
-    for t_scalar in range(buf.num_timesteps - 1, -1, -1):
-        z.copy_(draw(t_scalar, tuple(shape)))
-        t.fill_(t_scalar)
-        graphs(("ancestral", x.shape), step)
-    return x.clone()
-
-
-@torch.no_grad()
-def _ddim_sample_loop_graphed(graphs, buf, score_fn, shape, generator=None,
-                              sample_steps: int = 100, eta: float = 0.0,
-                              objective: str = "pred_noise", clip_x0: Optional[float] = 10.0,
-                              noise=None, device="cuda", mesh=None):
-    """:func:`ddim_sample_loop` with each step replayed from ``graphs``."""
-    buf, draw, mol = _chain_start(buf, shape, generator, noise, device, mesh)
-    x, z, t = _chain_buffers(graphs, mol)
-    t_prev = graphs.buffer("t_prev", (), torch.long)
-    b = x.shape[0]
-
-    def step(last):
-        def run():
-            tp = None if last else t_prev.expand(b).contiguous()
-            out = _ddim_update(buf, score_fn, x, t.expand(b).contiguous(), tp, z, eta,
-                               objective, clip_x0)
-            x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
-        return run
-
-    taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
-    for tau, tau_prev in zip(taus.tolist(), prev_taus.tolist()):
-        z.copy_(draw(tau, tuple(shape)))
-        t.fill_(tau)
-        t_prev.fill_(max(tau_prev, 0))
-        graphs(("ddim", tau_prev < 0, x.shape), step(tau_prev < 0))
-    return x.clone()
-
-
-@torch.no_grad()
-def _dpm_solver_pp_2m_loop_graphed(graphs, buf, score_fn, shape, generator=None,
-                                   sample_steps: int = 100, objective: str = "pred_noise",
-                                   clip_x0: Optional[float] = 10.0, noise=None, device="cuda",
-                                   mesh=None):
-    """:func:`dpm_solver_pp_2m_loop` with each step replayed from ``graphs``;
-    the previous x0 estimate and lambda live in static buffers too."""
-    buf, _, mol = _chain_start(buf, shape, generator, noise, device, mesh)
-    x, _, t = _chain_buffers(graphs, mol)
-    t_prev = graphs.buffer("t_prev", (), torch.long)
-    x0_prev, lam_prev = graphs.buffer("x0_prev", x.shape), graphs.buffer("lam_prev", ())
-    b = x.shape[0]
-
-    def step(first, last):
-        def run():
-            abar_t = None if last else _at(buf.alphas_cumprod, t_prev)
-            out, x0_s, lam_s = _dpm2m_update(
-                buf, score_fn, x, t.expand(b).contiguous(), _at(buf.alphas_cumprod, t), abar_t,
-                None if first else x0_prev, lam_prev, objective, clip_x0)
-            x.copy_(center_zero(out.clamp(-1000.0, 1000.0)))
-            x0_prev.copy_(x0_s)
-            lam_prev.copy_(lam_s)
-        return run
-
-    taus, prev_taus = ddim_timestep_ladder(buf.num_timesteps, sample_steps)
-    for i, (tau, tau_prev) in enumerate(zip(taus.tolist(), prev_taus.tolist())):
-        t.fill_(tau)
-        t_prev.fill_(max(tau_prev, 0))
-        graphs(("dpm2m", i == 0, tau_prev < 0, x.shape), step(i == 0, tau_prev < 0))
-    return x.clone()
 
 
 def p_losses(buf: DiffusionBuffers, score_fn: ScoreFn, x_start, t, noise,
@@ -585,20 +536,16 @@ class GaussianDiffusion:
         return loss, {"kl_at_T": kl}
 
     # -- sampling ------------------------------------------------------------
-    def _sample_loop_fn(self, sample_steps: Optional[int], eta: float, solver: str = "ddim",
-                        graphed: bool = False):
+    def _sample_loop_fn(self, sample_steps: Optional[int], eta: float, solver: str = "ddim"):
         """Reverse-chain loop selector: the full ancestral chain by default,
         a strided chain when ``sample_steps`` is given. ``solver``: "ddim" or
-        "dpm2m" (deterministic; ``eta`` does not apply). ``graphed`` gives the
-        loop's graphed form, which takes a ``StepGraphs`` first."""
+        "dpm2m" (deterministic; ``eta`` does not apply)."""
         if sample_steps is None:
-            return _p_sample_loop_graphed if graphed else p_sample_loop
+            return p_sample_loop
         if solver == "ddim":
-            return partial(_ddim_sample_loop_graphed if graphed else ddim_sample_loop,
-                           sample_steps=sample_steps, eta=eta)
+            return partial(ddim_sample_loop, sample_steps=sample_steps, eta=eta)
         if solver == "dpm2m":
-            return partial(_dpm_solver_pp_2m_loop_graphed if graphed else dpm_solver_pp_2m_loop,
-                           sample_steps=sample_steps)
+            return partial(dpm_solver_pp_2m_loop, sample_steps=sample_steps)
         raise ValueError(f"unknown solver {solver!r} (ddim | dpm2m)")
 
     def reverse_chain(self, graphs, score_fn: ScoreFn, shape, generator=None,
@@ -606,13 +553,12 @@ class GaussianDiffusion:
                       solver: str = "ddim", noise=None, device="cuda", mesh=None):
         """One reverse chain of ``score_fn`` in normalised units, the loop
         :meth:`_sample_loop_fn` selects: each step replayed from ``graphs``
-        (a :class:`~twoforone_torch.utils.cuda_graph.StepGraphs`), or the
-        eager loop where ``graphs`` is None."""
-        loop = self._sample_loop_fn(sample_steps, eta, solver, graphed=graphs is not None)
-        if graphs is not None:
-            loop = partial(loop, graphs)
+        (a :class:`~twoforone_torch.utils.cuda_graph.StepGraphs`), or eager
+        where ``graphs`` is None."""
+        loop = self._sample_loop_fn(sample_steps, eta, solver)
         return loop(self.buffers_on(device), score_fn, shape, generator,
-                    objective=self.objective, noise=noise, device=device, mesh=mesh)
+                    objective=self.objective, noise=noise, device=device, mesh=mesh,
+                    graphs=graphs)
 
     def sample(self, params, batch_size: int, generator=None,
                sample_steps: Optional[int] = None, eta: float = 0.0, solver: str = "ddim",

@@ -6,16 +6,16 @@
 - :class:`LangevinSimulation` drives them over chunks of
   ``steps_per_chunk`` steps (the JAX package's ``lax.scan``/``fori_loop``
   chunk). Saved frames stay on the device and are copied to the host once
-  per chunk. On the card the deterministic part of a step (centring, force,
-  clamp, restraint, update) is captured once in a CUDA graph of one step
-  and replayed (:class:`~twoforone_torch.utils.cuda_graph.StepGraphs`): the
-  counterpart of the JAX package's compiled save period. A CPU run is the
-  same step called from Python.
+  per chunk. The deterministic part of a step (centring, force, clamp,
+  restraint, update in place) is one function, which the CPU calls from
+  Python and the card captures once in a CUDA graph of one step and replays
+  (:mod:`twoforone_torch.utils.cuda_graph`): the counterpart of the JAX
+  package's compiled save period.
 - Noise comes from a ``torch.Generator`` on the simulation's device, one
   draw of the coordinates' shape per step, so a trajectory does not depend
-  on the chunking. The draws stay outside the graph: each replay reads its
-  step's noise, and its inverse temperature, from static buffers filled
-  just before it, so a graphed run draws the numbers an eager one draws.
+  on the chunking. The draws stay outside the graph: each step reads its
+  noise, and its inverse temperature, from static buffers filled just
+  before it, so a graphed run draws the numbers an eager one draws.
   The generator state is part of :attr:`state`, so a run
   resumed with :meth:`load_state` continues the uninterrupted trajectory.
 - Spans (:mod:`twoforone_torch.utils.profiling`): ``langevin.step`` around
@@ -35,6 +35,7 @@ import os
 import time
 import warnings
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -42,7 +43,7 @@ import torch
 
 from twoforone_torch.ops.geometry import center_zero
 from twoforone_torch.parallel.mesh import entry_device, gather, local_rows
-from twoforone_torch.utils.cuda_graph import graphs_for
+from twoforone_torch.utils.cuda_graph import graphs_for, output, run, static
 from twoforone_torch.utils.profiling import annotate
 
 ForceFn = Callable[[torch.Tensor], tuple]  # x -> (potential, forces)
@@ -253,8 +254,8 @@ class LangevinSimulation:
 
     def _advance(self, x, v, coef, noise):
         """:meth:`one_step` with ``coef`` from :meth:`_step_coefficients`, a
-        float or a 0-d float32 tensor (the graph's), which give the same
-        float32 products."""
+        float (``one_step``'s) or a 0-d float32 tensor (``simulate``'s), which
+        give the same float32 products."""
         x = center_zero(x)
         potential, forces = self.force_fn(x)
         if self.max_force is not None:
@@ -271,29 +272,14 @@ class LangevinSimulation:
             v_new = v
         return x_new, v_new, potential, forces
 
-    def _graphed_step(self, x, v):
-        """The graphed form of a step: ``advance(coef) -> (potential,
-        forces)`` draws the step's noise into a static buffer, copies its
-        coefficient (a 0-d float32 device tensor) into another and replays
-        the graph of the step, which advances the static ``x`` and ``v`` in
-        place (the first call is the eager warm-up, then the capture)."""
-        graphs = self._graphs
-        noise = graphs.buffer("noise", x.shape)
-        coef = graphs.buffer("coef", ())
-
-        def step():
-            x_new, v_new, potential, forces = self._advance(x, v, coef, noise)
-            x.copy_(x_new)
-            if v is not None:
-                v.copy_(v_new)
-            return potential, forces
-
-        def advance(step_coef):
-            noise.copy_(self._draw_noise(x))
-            coef.copy_(step_coef)
-            return graphs(("step", tuple(x.shape)), step)
-
-        return advance
+    def _step(self, x, v, coef, noise):
+        """The device work of one step (what a graph records): :meth:`_advance`
+        with ``x`` and ``v`` advanced in place; returns (potential, forces)."""
+        x_new, v_new, potential, forces = self._advance(x, v, coef, noise)
+        x.copy_(x_new)
+        if v is not None:
+            v.copy_(v_new)
+        return potential, forces
 
     # ------------------------------------------------------------- driving
     @torch.no_grad()
@@ -347,35 +333,30 @@ class LangevinSimulation:
         ke_out = (np.empty((total_saves, self.n_sims), dtype=np.float32)
                   if self.friction is not None else None)
 
-        x, v = self._state
+        # The loop's own state, advanced in place (on the card the graph's
+        # static buffers): what leaves the loop is a copy, so no caller holds
+        # a tensor that a later step overwrites.
         graphs = self._graphs
-        keep = torch.clone if graphs is not None else (lambda t: t)  # eager steps make new tensors
-        if graphs is not None:
-            # The static state of the graph: self._state gets copies at the
-            # end, so no caller holds a tensor that a replay overwrites.
-            coefs_all = torch.as_tensor(self._step_coefficients(betas_all), device=self.device)
-            x = graphs.buffer("x", x.shape).copy_(x)
-            v = None if v is None else graphs.buffer("v", v.shape).copy_(v)
-            advance = self._graphed_step(x, v)
+        x, v = self._state
+        x = output(graphs, "x", x).copy_(x)
+        v = None if v is None else output(graphs, "v", v).copy_(v)
+        coefs_all = torch.as_tensor(self._step_coefficients(betas_all), device=self.device)
         done = save_idx = export_start = 0
         while done < remaining:
             chunk = min(steps_per_chunk, remaining - done)
             saved = {"coords": [], "forces": [], "potential": [], "kinetic_energy": []}
             for i in range(chunk):
                 with annotate("langevin.step"):
-                    if graphs is not None:
-                        potential, forces = advance(coefs_all[done + i])
-                    else:
-                        noise = self._draw_noise(x)
-                        x, v, potential, forces = self.one_step(
-                            x, v, float(betas_all[done + i]), noise
-                        )
+                    noise = static(graphs, "noise", self._draw_noise(x))
+                    coef = static(graphs, "coef", coefs_all[done + i])
+                    potential, forces = run(graphs, ("step", tuple(x.shape)),
+                                            partial(self._step, x, v, coef, noise))
                     if (i + 1) % self.save_interval == 0:
-                        saved["coords"].append(keep(x))
+                        saved["coords"].append(x.clone())
                         if self.save_forces:
-                            saved["forces"].append(keep(forces))
+                            saved["forces"].append(forces.clone())
                         if self.save_potential:
-                            saved["potential"].append(keep(potential))
+                            saved["potential"].append(potential.clone())
                         if ke_out is not None:
                             saved["kinetic_energy"].append(
                                 0.5 * torch.sum(self._masses[:, None] * v**2, dim=(1, 2))
@@ -417,7 +398,7 @@ class LangevinSimulation:
             self._export_npy(coords_out, forces_out, potential_out, ke_out,
                              export_start, save_idx)
 
-        self._state = (keep(x), None if v is None else keep(v))
+        self._state = (x.clone(), None if v is None else v.clone())
         # (saves, sims, beads, 3) -> (sims, saves, beads, 3)
         self.simulated_coords = coords_out.swapaxes(0, 1)
         self.simulated_forces = None if forces_out is None else forces_out.swapaxes(0, 1)

@@ -93,7 +93,7 @@ from twoforone_torch.parallel.mesh import (
 from twoforone_torch.train.ema import EMAConfig, ema_apply, ema_due, ema_scalars, init_ema
 from twoforone_torch.utils.checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from twoforone_torch.utils.convert import params_from_jax, params_to_jax
-from twoforone_torch.utils.cuda_graph import graphs_for
+from twoforone_torch.utils.cuda_graph import graphs_for, output, run, static
 from twoforone_torch.utils.device import float32_products
 from twoforone_torch.utils.preempt import exit_if_preempted
 from twoforone_torch.utils.profiling import annotate, trace
@@ -222,28 +222,6 @@ def make_optimizer(net: torch.nn.Module, config):
     else:
         schedule = lambda count: float(config.learning_rate)  # noqa: E731
     return AdamW(net.parameters(), lr=schedule(0), weight_decay=config.weight_decay), schedule
-
-
-def _run(graphs, key, fn):
-    """``fn()`` eagerly when ``graphs`` is None, else replayed from ``graphs``
-    under ``key`` (the first call of a key warms up and captures)."""
-    return fn() if graphs is None else graphs(key, fn)
-
-
-def _static(graphs, name, value: torch.Tensor) -> torch.Tensor:
-    """``value`` itself when eager, else copied into the static buffer
-    ``name`` of ``graphs`` that the captured work reads."""
-    if graphs is None:
-        return value
-    return graphs.buffer(name, value.shape, value.dtype).copy_(value)
-
-
-def _output(graphs, name, like: torch.Tensor) -> torch.Tensor:
-    """Where work writes a result: a new tensor shaped like ``like`` when
-    eager, else the static buffer ``name`` of ``graphs``."""
-    if graphs is None:
-        return torch.zeros_like(like)
-    return graphs.buffer(name, like.shape, like.dtype)
 
 
 # Slots of a staging ring: the host runs at most this many batches ahead.
@@ -445,18 +423,18 @@ class Trainer:
                     batch = shard_batch(batch, self.mesh, self.device)
                     if batch.ndim == 3:
                         batch = batch[None]
-                    batch = _static(graphs, "batch", batch)
+                    batch = static(graphs, "batch", batch)
             with annotate("trainer.draws"):
                 drawn = [self._draws(generator, batch.shape[1], self.config.data_aug,
                                      None if draws is None else draws[i])
                          for i in range(batch.shape[0])]
-                drawn = [{k: _static(graphs, (k, i), v) for k, v in d.items()}
+                drawn = [{k: static(graphs, (k, i), v) for k, v in d.items()}
                          for i, d in enumerate(drawn)]
             with annotate("trainer.gradients"):
                 params = list(self.net.parameters())
-                grads = [_output(graphs, ("grad", i), p) for i, p in enumerate(params)]
-                loss, kl = (_output(graphs, name, self.kl_max) for name in ("loss", "kl"))
-                _run(graphs, ("gradients", tuple(batch.shape)),
+                grads = [output(graphs, ("grad", i), p) for i, p in enumerate(params)]
+                loss, kl = (output(graphs, name, self.kl_max) for name in ("loss", "kl"))
+                run(graphs, ("gradients", tuple(batch.shape)),
                      partial(self._gradients, grads, loss, kl, batch, drawn))
                 all_reduce_(kl, self.mesh, "max")
                 if self.mesh is not None:
@@ -517,12 +495,9 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.lr_schedule(self.step)
             ema_now = ema_due(self.step, self.ema_cfg, self._ema_scalars)
-            if graphs is None:
-                self._update_work(kl, ema_now, self.optimizer.step)
-            else:
-                self.optimizer.advance()
-                graphs(("update", ema_now),
-                       partial(self._update_work, kl, ema_now, self.optimizer.apply))
+            self.optimizer.advance()
+            run(graphs, ("update", ema_now),
+                partial(self._update_work, kl, ema_now, self.optimizer.apply))
         self.step += 1
 
     def _update_work(self, kl, ema_now: bool, optimizer_step) -> None:
@@ -558,14 +533,14 @@ class Trainer:
                                  device=generator.device))
         it = batch_iterator(data, self.local_batch, seed=(seed + 7919 * self.rank) % 2**31)
         graphs = self._eval_graphs
-        total = _output(graphs, "total", self.kl_max).zero_()
+        total = output(graphs, "total", self.kl_max).zero_()
         with float32_products(), torch.no_grad():
             for _ in range(val_iters):
                 mb = shard_batch(next(it), self.mesh, self.device)
                 d = self._draws(generator, mb.shape[0], rotation=False)
-                inputs = [_static(graphs, name, v) for name, v in
+                inputs = [static(graphs, name, v) for name, v in
                           (("batch", mb), ("t", d["t"]), ("noise", d["noise"]))]
-                _run(graphs, ("eval", tuple(mb.shape)), partial(self._eval_batch, total, *inputs))
+                run(graphs, ("eval", tuple(mb.shape)), partial(self._eval_batch, total, *inputs))
         loss = float(all_reduce_(total, self.mesh)) / max(1, val_iters)
         if self.writer is not None:
             self.writer.add_scalar(f"Loss {partition_name}", loss, int(self.step))

@@ -17,6 +17,14 @@ and wrote then. So a captured function reads its inputs from static buffers
 its results into static buffers or returns them (static outputs, which the
 next replay overwrites), and holds no Python number that changes between
 calls: it would be recorded as a constant.
+
+A loop is written once, for both forms, through three functions of its
+``graphs`` (a :class:`StepGraphs`, or None off the card as
+:func:`graphs_for` gives it): :func:`static` hands the step body an input,
+:func:`output` a tensor the body writes, and :func:`run` runs the body.
+With None they are the eager loop (the input itself, a new tensor, a plain
+call); with graphs the static buffers and the replay. Both forms run the
+same step body, so they give the same bits.
 """
 
 from __future__ import annotations
@@ -156,3 +164,25 @@ def graphs_for(device):
     None (the eager loop) elsewhere."""
     device = torch.device(device)
     return StepGraphs(device) if device.type == "cuda" else None
+
+
+def run(graphs, key, fn):
+    """``fn()`` eagerly when ``graphs`` is None, else replayed from ``graphs``
+    under ``key`` (the first call of a key warms up and captures)."""
+    return fn() if graphs is None else graphs(key, fn)
+
+
+def static(graphs, name, value: torch.Tensor) -> torch.Tensor:
+    """``value`` itself when eager, else copied into the static buffer
+    ``name`` of ``graphs`` that the captured work reads."""
+    if graphs is None:
+        return value
+    return graphs.buffer(name, value.shape, value.dtype).copy_(value)
+
+
+def output(graphs, name, like: torch.Tensor) -> torch.Tensor:
+    """Where work writes a result: a new zeroed tensor shaped like ``like``
+    when eager, else the static buffer ``name`` of ``graphs``."""
+    if graphs is None:
+        return torch.zeros_like(like)
+    return graphs.buffer(name, like.shape, like.dtype)
