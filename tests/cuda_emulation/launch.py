@@ -5,9 +5,11 @@ otherwise hang the test run).
     python launch.py <library.so> <launch function> <in.npz> <out.npy>
 
 ``in.npz`` holds ``x``, ``w``, ``t``, the launch's integer arguments
-``ints`` (batch, chains per tile, row blocks, thread blocks, scratch floats
-of a block, bytes of shared memory, then the model's dimensions). Scratch
-and output start as NaN.
+``ints`` (batch, chains per tile, row blocks, thread blocks, for K1 the
+blocks of a cluster, scratch floats of a tile, bytes of shared memory, then
+the model's dimensions), their C types ``kinds`` (``i`` int, ``q`` long
+long) and the length of the scratch, ``scratch``. Scratch and output start
+as NaN.
 """
 
 import ctypes
@@ -20,11 +22,11 @@ def main(so, fn_name, src, dst):
     data = np.load(src)
     x, w, t, ints = data["x"], data["w"], float(data["t"]), [int(v) for v in data["ints"]]
     fn = getattr(ctypes.CDLL(so), fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int] * (len(ints) - 6)
+    types = {"i": ctypes.c_int, "q": ctypes.c_longlong}
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [types[k] for k in str(data["kinds"])]
                    + [ctypes.c_void_p])
     out = np.full_like(x, np.nan)
-    scratch = np.full(ints[3] * ints[4], np.nan, np.float32)
+    scratch = np.full(int(data["scratch"]), np.nan, np.float32)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     rc = fn(ptr(x), ptr(out), ptr(w), ptr(scratch), t, *ints, None)
     if rc != 0:

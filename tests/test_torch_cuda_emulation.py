@@ -56,21 +56,30 @@ def build(name, tmp_path_factory):
     return lib
 
 
-def launch(lib, fn_name, x, w, t, plan, dims, tmp_path):
-    """One emulated launch (tests/cuda_emulation/launch.py) under a time limit."""
-    ints = [x.shape[0], plan.chains_per_tile, plan.row_blocks, plan.blocks, plan.scratch_floats,
-            plan.smem_bytes, *dims]
+def launch(lib, fn_name, x, w, t, plan, dims, tmp_path, clustered=False, card=(8, 0), rc=0):
+    """One emulated launch (tests/cuda_emulation/launch.py) under a time limit;
+    ``clustered``: the launch takes the plan's cluster size (K1's). The
+    emulated card has card[0] SMs of card[1] blocks each (0: as many as fit),
+    which bound the clusters it keeps resident; ``rc`` is the launch's code."""
+    head = [x.shape[0], plan.chains_per_tile, plan.row_blocks, plan.blocks]
+    ints = head + [plan.cluster] * clustered + [plan.scratch_floats, plan.smem_bytes, *dims]
+    kinds = "i" * (len(head) + clustered) + "qi" + "i" * len(dims)
     src, dst = str(tmp_path / "in.npz"), str(tmp_path / "out.npy")
-    np.savez(src, x=x, w=w, t=np.float32(t), ints=np.asarray(ints, np.int64))
+    np.savez(src, x=x, w=w, t=np.float32(t), ints=np.asarray(ints, np.int64), kinds=kinds,
+             scratch=plan.groups * plan.scratch_floats)
+    env = dict(os.environ, EMU_SM_COUNT=str(card[0]))
+    env.pop("EMU_BLOCKS_PER_SM", None)
+    if card[1]:
+        env["EMU_BLOCKS_PER_SM"] = str(card[1])
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "cuda_emulation", "launch.py"), lib.path, fn_name,
-         src, dst], capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S)
-    assert proc.returncode == 0, f"launch returned {proc.returncode}: {proc.stderr[-2000:]}"
-    return np.load(dst)
+         src, dst], capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S, env=env)
+    assert proc.returncode == rc, f"launch returned {proc.returncode}: {proc.stderr[-2000:]}"
+    return np.load(dst) if rc == 0 else None
 
 
-def model_of(layers, **edges):
-    return GraphTransformer(N, C, layers, heads=HEADS, dim_head=DH, **edges)
+def model_of(layers, heads=HEADS, dh=DH, **edges):
+    return GraphTransformer(N, C, layers, heads=heads, dim_head=dh, **edges)
 
 
 def coords(seed, chains):
@@ -86,7 +95,7 @@ def lib_cl(tmp_path_factory):
     return lib
 
 
-def run_cl(lib, folded, x, t, plan, tmp_path):
+def run_cl(lib, folded, x, t, plan, tmp_path, **card):
     dims = (folded.n, folded.c, folded.heads, folded.dh, folded.ff, folded.n_layers)
     w = folded.flat.numpy()
     assert lib.fused_force_cl_weight_floats(*dims) == w.size
@@ -94,33 +103,79 @@ def run_cl(lib, folded, x, t, plan, tmp_path):
         *dims, plan.chains_per_tile, plan.row_blocks) == plan.scratch_floats
     assert lib.fused_force_cl_smem_bytes(
         *dims, plan.chains_per_tile, plan.row_blocks) == plan.smem_bytes
-    return launch(lib, "fused_force_cl_launch", x, w, t, plan, dims, tmp_path)
+    return launch(lib, "fused_force_cl_launch", x, w, t, plan, dims, tmp_path, clustered=True,
+                  **card)
 
 
-# (chains, chains per tile, thread blocks): a full tile and a ragged one on
-# one block that walks over both; tiles of one chain; one tile of three
-# chains in 16 rows with one row of padding; a tile of four chains in 32 rows
-# and a ragged one after it; the widest tile, sixteen chains in 80 rows (where
-# the products lay their threads out differently), and a ragged one after it.
-CL_CASES = [(3, 2, 1), (2, 1, 2), (3, 3, 1), (5, 4, 1), (17, 16, 1)]
+def cl_plan(per_tile, chains, ff, heads, groups, cluster=1, dh=DH):
+    """K1's plan at a tile size, on at most ``groups`` blocks or clusters."""
+    plan = plan_at(per_tile, chains, N, C, heads, dh, ff, 2, sm_count=8, cluster=cluster)
+    return dataclasses.replace(plan, blocks=cluster * min(plan.groups, groups))
 
 
-@pytest.mark.parametrize("chains,per_tile,blocks", CL_CASES)
-def test_fused_score_cl_source_matches_plain_version(lib_cl, tmp_path, chains, per_tile, blocks):
-    model = model_of(2, use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
+# (chains, chains per tile, thread blocks or clusters, blocks of a cluster,
+# heads, t[, head width]): a full tile and a ragged one on one block that walks over both;
+# tiles of one chain; one tile of three chains in 16 rows with one row of
+# padding; a tile of four chains in 32 rows and a ragged one after it; the
+# widest tile, sixteen chains in 80 rows (where the products lay their
+# threads out differently), and a ragged one after it. Then tiles shared by
+# clusters of 1, 2 and 4 blocks, at a fixed t (Langevin's) and a runtime one
+# (the sampler's): tiles of one chain, one cluster a tile and one cluster
+# walking over three; tiles of 32 and 80 rows, a full one and a ragged one;
+# chignolin's 8 heads of 64, whose shares of 256 and 768 columns take the
+# 256-column shape of a share.
+CL_CASES = [(3, 2, 1, 1, HEADS, 0.3), (2, 1, 2, 1, HEADS, 0.3), (3, 3, 1, 1, HEADS, 0.3),
+            (5, 4, 1, 1, HEADS, 0.3), (17, 16, 1, 1, HEADS, 0.3)] + [
+    (3, 1, groups, cluster, 4, t) for t in (0.02, 0.71) for cluster in (1, 2, 4)
+    for groups in (3, 1)] + [(5, 4, 1, 2, 4, 0.71), (17, 16, 1, 4, 4, 0.02),
+                             (2, 1, 2, 2, 8, 0.02, 64)]
+
+
+@pytest.mark.parametrize("chains,per_tile,blocks,cluster,heads,t,dh",
+                         [case + (DH,) * (7 - len(case)) for case in CL_CASES])
+def test_fused_score_cl_source_matches_plain_version(lib_cl, tmp_path, chains, per_tile, blocks,
+                                                     cluster, heads, t, dh):
+    model = model_of(2, heads, dh, use_intrinsic_coords=True, use_abs_coords=False,
+                     use_distances=False)
     folded = fcl.augment_params_cl(model, init_params(model, 3), "cpu")
     x = coords(chains, chains)
-    plan = plan_at(per_tile, chains, N, C, HEADS, DH, folded.ff, 2, sm_count=blocks)
-    plan = dataclasses.replace(plan, blocks=min(plan.blocks, blocks))
-    out = run_cl(lib_cl, folded, x, 0.3, plan, tmp_path)
-    ref = fcl.fused_force_cl_reference(torch.from_numpy(x), 0.3, folded).numpy()
+    plan = cl_plan(per_tile, chains, folded.ff, heads, blocks, cluster, dh)
+    assert plan.cluster == cluster and plan.groups == min(blocks, plan.tiles)
+    out = run_cl(lib_cl, folded, x, t, plan, tmp_path)
+    ref = fcl.fused_force_cl_reference(torch.from_numpy(x), t, folded).numpy()
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max(), rtol=0)
+    if cluster > 1:
+        # The blocks of a cluster give the bits of one block alone.
+        one = cl_plan(per_tile, chains, folded.ff, heads, blocks, dh=dh)
+        np.testing.assert_array_equal(run_cl(lib_cl, folded, x, t, one, tmp_path), out)
     if per_tile > 1:
         # A chain's result has the same bits alone as beside its tile-mates.
-        alone = plan_tiles(1, N, C, HEADS, DH, folded.ff, 2, sm_count=1)
-        np.testing.assert_array_equal(run_cl(lib_cl, folded, x[:1], 0.3, alone, tmp_path),
+        alone = plan_tiles(1, N, C, heads, dh, folded.ff, 2, sm_count=1)
+        np.testing.assert_array_equal(run_cl(lib_cl, folded, x[:1], t, alone, tmp_path),
                                       out[:1])
+
+
+def test_fused_score_cl_source_refuses_clusters_the_card_cannot_hold(lib_cl, tmp_path):
+    """Three clusters of two blocks on an emulated card of one SM that holds
+    two blocks (one such cluster resident): the launch is refused, and the
+    library says how many it keeps; a cluster size the plan never takes, or
+    one that does not divide the heads, is refused too."""
+    edges = dict(use_intrinsic_coords=True, use_abs_coords=False, use_distances=False)
+    model = model_of(2, 4, **edges)
+    folded = fcl.augment_params_cl(model, init_params(model, 3), "cpu")
+    x = coords(5, 3)
+    plan = cl_plan(1, 3, folded.ff, 4, 3, 2)
+    assert plan.groups == 3
+    run_cl(lib_cl, folded, x, 0.3, plan, tmp_path, card=(1, 2), rc=1)
+    run_cl(lib_cl, folded, x, 0.3, plan, tmp_path, card=(3, 2))
+    for cluster in (3, 8):
+        run_cl(lib_cl, folded, x, 0.3, dataclasses.replace(plan, cluster=cluster,
+                                                           blocks=3 * cluster), tmp_path, rc=1)
+    two_heads = fcl.augment_params_cl(model_of(2, **edges), init_params(model_of(2, **edges), 3),
+                                      "cpu")
+    plan = dataclasses.replace(cl_plan(1, 3, two_heads.ff, 2, 1), cluster=4, blocks=4)
+    run_cl(lib_cl, two_heads, x, 0.3, plan, tmp_path, rc=1)
 
 
 @pytest.fixture(scope="module")

@@ -140,7 +140,7 @@ def _clone(tree):
     return tree
 
 
-PER_CALL = (1, 3, 3, 2)  # K1, K2, K3, K4
+PER_CALL = (1, 3, 3, 2, 1)  # K1, K2, K3, K4, K1 on clusters
 
 
 def _counting_fn(x, scale):
@@ -155,7 +155,7 @@ def _counting_fn(x, scale):
 @pytest.fixture
 def zero_launches():
     before = kernel_launches()
-    set_kernel_launches((0, 0, 0, 0))
+    set_kernel_launches((0, 0, 0, 0, 0))
     yield
     set_kernel_launches(before)
 
@@ -165,10 +165,12 @@ def test_kernel_launches_reads_the_four_counters_in_order(zero_launches):
     acc.cl_attention_core.launches_fwd = 2
     acc.cl_attention_core.launches_bwd = 3
     fsc.fused_force.launches = 4
-    assert kernel_launches() == (1, 2, 3, 4)
-    cuda_graph.add_kernel_launches((10, 20, 30, 40))
+    fcl.fused_force_cl.clustered = 5
+    assert kernel_launches() == (1, 2, 3, 4, 5)
+    cuda_graph.add_kernel_launches((10, 20, 30, 40, 50))
     assert (fcl.fused_force_cl.launches, acc.cl_attention_core.launches_fwd,
-            acc.cl_attention_core.launches_bwd, fsc.fused_force.launches) == (11, 22, 33, 44)
+            acc.cl_attention_core.launches_bwd, fsc.fused_force.launches,
+            fcl.fused_force_cl.clustered) == (11, 22, 33, 44, 55)
 
 
 @pytest.mark.parametrize("calls", [1, 2, 5])

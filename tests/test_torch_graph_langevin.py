@@ -189,10 +189,10 @@ def test_kernel_launches_equal_steps_through_the_graphed_loop():
 
     ld.sim.force_fn = counting_force
     before = kernel_launches()
-    set_kernel_launches((0, 0, 0, 0))
+    set_kernel_launches((0, 0, 0, 0, 0))
     try:
         _run(ld, StandInGraphs())
-        assert kernel_launches() == (100, 0, 0, 0)
+        assert kernel_launches() == (100, 0, 0, 0, 0)
     finally:
         set_kernel_launches(before)
 
@@ -264,3 +264,24 @@ def test_graphed_plain_network_equals_eager_on_the_card(cuda_device, friction, b
     graphed, graphs = run(True)
     _same(eager, graphed)
     assert list(graphs.graphs) == [("step", (100, N, 3))]
+
+
+@pytest.mark.cuda
+def test_graphed_clustered_force_kernel_equals_eager_on_the_card(cuda_device):
+    """K1 at 100 chains of 6 beads: 50 tiles of two chains, each shared by a
+    cluster of 4 blocks. The captured step replays that launch with the bits
+    of the eager step, and counts each replay's launch as clustered."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(graphed):
+        ld = _ld(chains=100, steps=60, device=cuda_device, fused="cl")
+        graphs = ld.sim._graphs if graphed else None
+        before = (fcl.fused_force_cl.launches, fcl.fused_force_cl.clustered)
+        out = _run(ld, graphs)
+        return out, (fcl.fused_force_cl.launches - before[0],
+                     fcl.fused_force_cl.clustered - before[1])
+
+    eager, eager_counts = run(False)
+    graphed, graphed_counts = run(True)
+    _same(eager, graphed)
+    assert graphed_counts == eager_counts and eager_counts[1] == eager_counts[0] >= 60

@@ -25,13 +25,24 @@
 // bytes of coordinates in and out per chain. The residuals the backward needs
 // (about 0.26 MB a chain) pass through the block's scratch in global memory:
 // 0.5 GB written and read per 1000 chains, half of the operation bound's time
-// at the card's memory rate if all of it reached device memory.
+// at the card's memory rate if all of it reached device memory. At a few
+// chains (the paper's 100) a call is a chain of dependent phases on each
+// block instead: a tile of one chain is 16 rows, and each staged chunk of a
+// product, each attention pass and each row-wise piece waits on the one
+// before, at a tenth of an SM's rate.
 //
 // What the design does about it: several chains per tile (tile_gemm.cuh). A
 // fixed grid of thread blocks, two to an SM, walks over tiles of T chains;
 // the Python wrapper picks T from the chain count (ops/tile_plan.py), so that
 // many chains share each pass over the weights and a small batch still
-// spreads over all SMs. A tile's T * N rows (padded to a multiple of 16) go
+// spreads over all SMs. Where the tiles are fewer than half the resident
+// blocks, the plan gives each tile to a thread-block cluster of 2 or 4 blocks
+// (the largest that divides the heads and whose clusters the card keeps
+// resident at once): they share the tile's scratch, each computes its share
+// of every product's output columns and of the heads, and they meet at a
+// cluster barrier where one reads what another wrote, so that each chain's
+// chain of phases is shorter. No sum is split between blocks: a chain's force
+// has the same bits on any cluster size. A tile's T * N rows (padded to a multiple of 16) go
 // through every projection as one product, with the weights staged through
 // shared memory by asynchronous copies and multiplied in float32 register
 // tiles. The three input projections
@@ -42,6 +53,11 @@
 // memory and does the N^2 work there. Rows beyond the tile's chains hold zeros
 // or values derived from zeros and reach no chain's result, and no sum depends
 // on where in a tile a chain sits.
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
 
 #include "tile_gemm.cuh"
 
@@ -158,11 +174,14 @@ __device__ Work work(float* base, const Dims& d, int rows) {
 }
 
 // The attention block of layer W on a tile of `chains` chains (production
-// edges: coordinate differences, no distances).
+// edges: coordinate differences, no distances), over block part.rank's share
+// of the heads.
 __device__ Attention attention(const Dims& d, const LayerW& W, const Resid& R, int chains, int rows,
-                               const float* xs, float* dxs) {
+                               const float* xs, float* dxs, const Part& part) {
   Attention t;
   t.chains = chains; t.n = d.n; t.heads = d.heads; t.dh = d.dh; t.rows = rows;
+  t.part_heads = d.heads / part.ranks;
+  t.head0 = part.rank * t.part_heads;
   t.scale = d.scale;
   t.x = xs; t.dx = dxs;
   t.kc = W.kc; t.kd = nullptr;
@@ -170,14 +189,21 @@ __device__ Attention attention(const Dims& d, const LayerW& W, const Resid& R, i
   return t;
 }
 
+// A tile is shared by the `cluster` blocks of a thread-block cluster (1, 2
+// or 4): each takes a share of every product's output columns and of the
+// attention's heads, and a contiguous share of the rows in the row-wise
+// pieces, and they meet at a cluster barrier (part.sync) wherever one reads
+// what another wrote. The coordinate gradient is summed by every block whole,
+// in its own shared memory, and block 0 stores the force. At cluster 1 the
+// barriers are not taken and the block does all of it.
 template <int TM>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_force_cl_kernel(const float* __restrict__ x, float* __restrict__ out,
                       const float* __restrict__ w, float* scratch, float t, int batch,
-                      int tile_chains, Dims d) {
+                      int tile_chains, int cluster, Dims d) {
   TILE_DYNAMIC_SMEM(smem4);
   constexpr int ROWS = 16 * TM;
-  const int n = d.n, C = d.c, I = d.inner, F = d.ff, H = d.heads, I3 = 3 * d.inner;
+  const int n = d.n, C = d.c, I = d.inner, F = d.ff, I3 = 3 * d.inner;
   float* gemm_smem = reinterpret_cast<float*>(smem4);  // the products' ring, the attention's units
   float* xs = gemm_smem + work_smem_floats(ROWS, d.n, d.heads, d.dh);
   float* dxs = xs + round4(3LL * tile_chains * n);
@@ -185,19 +211,29 @@ fused_force_cl_kernel(const float* __restrict__ x, float* __restrict__ out,
   const float* h0 = w + d.layers * layer_floats(d);
   const float* wt = h0 + n * C;
   const float* wdec = wt + C;
+  Part part;
+  int group = blockIdx.x, groups = gridDim.x;  // the tile-sharing group: a block or a cluster
+  if (cluster > 1) {
+    part.rank = cluster_rank();
+    part.ranks = cluster;
+    group = cluster_index();
+    groups = cluster_count();
+  }
+  // This block's rows in the row-wise pieces.
+  const int own = ROWS / part.ranks, r0 = part.rank * own;
   const long long per_layer = resid_floats(d, tile_chains, ROWS);
-  float* mine = scratch + (size_t)blockIdx.x * block_scratch_floats(d, tile_chains, ROWS);
+  float* mine = scratch + (size_t)group * block_scratch_floats(d, tile_chains, ROWS);
   const Work Wk = work(mine + d.layers * per_layer, d, ROWS);
   const int tiles = (batch + tile_chains - 1) / tile_chains;
 
-  for (int tile_i = blockIdx.x; tile_i < tiles; tile_i += gridDim.x) {
+  for (int tile_i = group; tile_i < tiles; tile_i += groups) {
     const long long b0 = (long long)tile_i * tile_chains;
     const int chains = min(tile_chains, (int)(batch - b0));
     const int real = chains * n;
     load_centred(x, b0, chains, n, xs, dxs, mean);
     {
       float* hin = resid(mine, d, tile_chains, ROWS).hin;
-      for (int i = threadIdx.x; i < ROWS * C; i += NTHREADS) {
+      for (int i = r0 * C + threadIdx.x; i < (r0 + own) * C; i += NTHREADS) {
         const int r = i / C, k = i % C;
         hin[i] = r < real ? __ldg(h0 + (r % n) * C + k) + t * __ldg(wt + k) : 0.f;
       }
@@ -211,42 +247,64 @@ fused_force_cl_kernel(const float* __restrict__ x, float* __restrict__ out,
       // The last layer's output feeds only the energy, which is not returned.
       float* hnext =
           l + 1 < d.layers ? resid(mine + (l + 1) * per_layer, d, tile_chains, ROWS).hin : Wk.t1;
-      layer_norm(R.hin, Wk.hl, W.ln1_g, W.ln1_b, ROWS, C);
-      gemm<TM, false>(Wk.hl, C, W.wqkv, W.bqkv, R.qkv, I3, EPI_STORE, nullptr, gemm_smem);
-      attention_fwd(attention(d, W, R, chains, ROWS, xs, dxs), Wk.u, gemm_smem);
-      gemm<TM, true>(Wk.u, I, W.wo, W.bo, R.a, C, EPI_STORE, nullptr, gemm_smem);
-      gate_fwd(R.a, R.hin, W.ga1, W.gh1, R.g1, R.hmid, ROWS, C);
-      layer_norm(R.hmid, Wk.hl, W.ln2_g, W.ln2_b, ROWS, C);
-      gemm<TM, false>(Wk.hl, C, W.w1, W.b1, R.f1, F, EPI_STORE_AND_GELU, Wk.df1, gemm_smem);
-      gemm<TM, true>(Wk.df1, F, W.w2, W.b2, R.f, C, EPI_STORE, nullptr, gemm_smem);
-      gate_fwd(R.f, R.hmid, W.ga2, W.gh2, R.g2, hnext, ROWS, C);
+      const size_t o = (size_t)r0 * C;  // this block's first row in the row-wise pieces
+      layer_norm(R.hin + o, Wk.hl + o, W.ln1_g, W.ln1_b, own, C);
+      part.sync();
+      gemm<TM, false>(Wk.hl, C, W.wqkv, W.bqkv, R.qkv, I3, EPI_STORE, nullptr, gemm_smem, part);
+      part.sync();
+      attention_fwd(attention(d, W, R, chains, ROWS, xs, dxs, part), Wk.u, gemm_smem);
+      part.sync();
+      gemm<TM, true>(Wk.u, I, W.wo, W.bo, R.a, C, EPI_STORE, nullptr, gemm_smem, part);
+      part.sync();
+      gate_fwd(R.a + o, R.hin + o, W.ga1, W.gh1, R.g1 + r0, R.hmid + o, own, C);
+      layer_norm(R.hmid + o, Wk.hl + o, W.ln2_g, W.ln2_b, own, C);
+      part.sync();
+      gemm<TM, false>(Wk.hl, C, W.w1, W.b1, R.f1, F, EPI_STORE_AND_GELU, Wk.df1, gemm_smem, part);
+      part.sync();
+      gemm<TM, true>(Wk.df1, F, W.w2, W.b2, R.f, C, EPI_STORE, nullptr, gemm_smem, part);
+      part.sync();
+      gate_fwd(R.f + o, R.hmid + o, W.ga2, W.gh2, R.g2 + r0, hnext + o, own, C);
     }
 
     // ------------------------------------------------------------- backward
-    for (int i = threadIdx.x; i < ROWS * C; i += NTHREADS) Wk.dh[i] = __ldg(wdec + i % C);
+    for (int i = r0 * C + threadIdx.x; i < (r0 + own) * C; i += NTHREADS)
+      Wk.dh[i] = __ldg(wdec + i % C);
     __syncthreads();
     for (int l = d.layers - 1; l >= 0; --l) {
       const LayerW W = layer_weights(w, d, l);
       const Resid R = resid(mine + l * per_layer, d, tile_chains, ROWS);
+      const size_t o = (size_t)r0 * C;
       // Feed-forward gated residual.
-      gate_bwd(R.f, R.hmid, R.g2, W.ga2, W.gh2, Wk.dh, Wk.t1, ROWS, C);  // t1 = df
-      gemm<TM, false>(Wk.t1, C, W.w2T, nullptr, Wk.df1, F, EPI_TIMES_GELU_GRAD, R.f1,
-                      gemm_smem);  // d (pre-activation)
-      gemm<TM, true>(Wk.df1, F, W.w1T, nullptr, Wk.hl, C, EPI_STORE, nullptr,
-                     gemm_smem);  // d LN2 out
-      layer_norm_bwd(R.hmid, Wk.hl, W.ln2_g, Wk.dh, ROWS, C);
+      gate_bwd(R.f + o, R.hmid + o, R.g2 + r0, W.ga2, W.gh2, Wk.dh + o, Wk.t1 + o, own,
+               C);  // t1 = df
+      part.sync();
+      gemm<TM, false>(Wk.t1, C, W.w2T, nullptr, Wk.df1, F, EPI_TIMES_GELU_GRAD, R.f1, gemm_smem,
+                      part);  // d (pre-activation)
+      part.sync();
+      gemm<TM, true>(Wk.df1, F, W.w1T, nullptr, Wk.hl, C, EPI_STORE, nullptr, gemm_smem,
+                     part);  // d LN2 out
+      part.sync();
+      layer_norm_bwd(R.hmid + o, Wk.hl + o, W.ln2_g, Wk.dh + o, own, C);
       // Attention gated residual.
-      gate_bwd(R.a, R.hin, R.g1, W.ga1, W.gh1, Wk.dh, Wk.t1, ROWS, C);  // t1 = da
-      gemm<TM, false>(Wk.t1, C, W.woT, nullptr, Wk.du, I, EPI_STORE, nullptr, gemm_smem);
+      gate_bwd(R.a + o, R.hin + o, R.g1 + r0, W.ga1, W.gh1, Wk.dh + o, Wk.t1 + o, own,
+               C);  // t1 = da
+      part.sync();
+      // du: this block's columns are its heads' columns, which its attention
+      // reads; the coordinate gradient through du reads them all.
+      gemm<TM, false>(Wk.t1, C, W.woT, nullptr, Wk.du, I, EPI_STORE, nullptr, gemm_smem, part);
+      attention_bwd(attention(d, W, R, chains, ROWS, xs, dxs, part), Wk.du, Wk.dqkv, nullptr,
+                    nullptr, gemm_smem);
+      part.sync();
       three_row_bwd(Wk.du, I, nullptr, 0, -1.f, W.kc, dxs, real, I);
-      attention_bwd(attention(d, W, R, chains, ROWS, xs, dxs), Wk.du, Wk.dqkv, nullptr, nullptr,
-                    gemm_smem);
       const float *dk = Wk.dqkv + I, *dv = Wk.dqkv + 2 * I;
       three_row_bwd(dk, I3, dv, I3, 1.f, W.kc, dxs, real, I);
-      gemm<TM, true>(Wk.dqkv, I3, W.wqkvT, nullptr, Wk.hl, C, EPI_STORE, nullptr, gemm_smem);
-      layer_norm_bwd(R.hin, Wk.hl, W.ln1_g, Wk.dh, ROWS, C);
+      gemm<TM, true>(Wk.dqkv, I3, W.wqkvT, nullptr, Wk.hl, C, EPI_STORE, nullptr, gemm_smem,
+                     part);
+      part.sync();
+      layer_norm_bwd(R.hin + o, Wk.hl + o, W.ln1_g, Wk.dh + o, own, C);
     }
-    for (int i = threadIdx.x; i < 3 * real; i += NTHREADS) out[b0 * 3 * n + i] = -dxs[i];
+    if (part.rank == 0)
+      for (int i = threadIdx.x; i < 3 * real; i += NTHREADS) out[b0 * 3 * n + i] = -dxs[i];
     __syncthreads();
   }
 }
@@ -259,24 +317,75 @@ Dims make_dims(int n, int c, int heads, int dh, int ff, int layers) {
   return d;
 }
 
-bool plan_ok(const Dims& d, int batch, int tile_chains, int row_blocks, int blocks) {
+bool plan_ok(const Dims& d, int batch, int tile_chains, int row_blocks, int blocks, int cluster) {
+  const int tiles = (batch + tile_chains - 1) / tile_chains;
   return d.n >= 1 && d.n <= MAX_N && d.c >= 4 && d.heads >= 1 && d.dh >= 4 && d.ff >= 4
          && d.layers >= 1 && d.c % 4 == 0 && d.dh % 4 == 0 && d.ff % 4 == 0 && batch >= 1
          && tile_chains >= 1 && row_blocks >= 1 && row_blocks <= MAX_TM
          && tile_chains * d.n <= 16 * row_blocks && head_group(d.n, d.heads, d.dh) >= 1
-         && blocks >= 1
-         && blocks <= (batch + tile_chains - 1) / tile_chains;
+         && (cluster == 1 || cluster == 2 || cluster == 4) && d.heads % cluster == 0
+         && blocks >= 1 && blocks % cluster == 0 && blocks / cluster <= tiles;
+}
+
+template <int TM>
+cudaError_t set_smem(size_t smem) {
+  return cudaFuncSetAttribute(fused_force_cl_kernel<TM>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Clusters of `cluster` blocks of 16 * TM rows that the current card keeps
+// resident at once, asked once for each (card, TM, cluster, smem).
+template <int TM>
+cudaError_t resident_clusters(int cluster, size_t smem, int* count) {
+  static std::mutex lock;
+  static std::map<std::tuple<int, int, size_t>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(dev, cluster, smem);
+  std::lock_guard<std::mutex> hold(lock);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *count = it->second;
+    return cudaSuccess;
+  }
+  err = set_smem<TM>(smem);
+  if (err == cudaSuccess)
+    err = TILE_MAX_ACTIVE_CLUSTERS(count, fused_force_cl_kernel<TM>, cluster, NTHREADS, smem);
+  if (err == cudaSuccess) known[key] = *count;
+  return err;
 }
 
 template <int TM>
 cudaError_t launch(const float* x, float* out, const float* w, float* scratch, float t, int batch,
-                   int tile_chains, int blocks, size_t smem, const Dims& d, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_force_cl_kernel<TM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   int tile_chains, int blocks, int cluster, size_t smem, const Dims& d,
+                   cudaStream_t stream) {
+  cudaError_t err = set_smem<TM>(smem);
   if (err != cudaSuccess) return err;
-  TILE_LAUNCH(fused_force_cl_kernel<TM>, blocks, NTHREADS, smem, stream, x, out, w, scratch, t,
-              batch, tile_chains, d);
-  return cudaGetLastError();
+  if (cluster == 1) {
+    TILE_LAUNCH(fused_force_cl_kernel<TM>, blocks, NTHREADS, smem, stream, x, out, w, scratch, t,
+                batch, tile_chains, cluster, d);
+    return cudaGetLastError();
+  }
+  // Every cluster of the launch must be resident at once.
+  int resident = 0;
+  err = resident_clusters<TM>(cluster, smem, &resident);
+  if (err != cudaSuccess) return err;
+  if (blocks / cluster > resident) return cudaErrorInvalidValue;
+  err = TILE_LAUNCH_CLUSTER(fused_force_cl_kernel<TM>, blocks, cluster, NTHREADS, smem, stream, x,
+                            out, w, scratch, t, batch, tile_chains, cluster, d);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <class F>
+cudaError_t by_rows(int row_blocks, F f) {
+  switch (row_blocks) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return f(std::integral_constant<int, 5>());
+  }
 }
 
 }  // namespace
@@ -287,7 +396,8 @@ long long fused_force_cl_weight_floats(int n, int c, int heads, int dh, int ff, 
   return weight_floats(make_dims(n, c, heads, dh, ff, layers));
 }
 
-// Scratch floats of ONE thread block whose tiles hold `tile_chains` chains in
+// Scratch floats of ONE tile in flight (one thread block, or the blocks of
+// one cluster, which share it) whose tiles hold `tile_chains` chains in
 // 16 * row_blocks rows.
 long long fused_force_cl_scratch_floats(int n, int c, int heads, int dh, int ff, int layers,
                                         int tile_chains, int row_blocks) {
@@ -300,34 +410,45 @@ long long fused_force_cl_smem_bytes(int n, int c, int heads, int dh, int ff, int
   return 4 * smem_floats(make_dims(n, c, heads, dh, ff, layers), tile_chains, 16 * row_blocks);
 }
 
+// Clusters of `cluster` blocks (16 * row_blocks rows, smem_bytes of shared
+// memory each) that the current card keeps resident at once; a negative
+// cudaError_t code if the card cannot say.
+int fused_force_cl_resident_clusters(int row_blocks, int cluster, int smem_bytes) {
+  if (row_blocks < 1 || row_blocks > MAX_TM || cluster < 1) return -(int)cudaErrorInvalidValue;
+  int count = 0;
+  const cudaError_t err = by_rows(row_blocks, [&](auto tm) {
+    return resident_clusters<decltype(tm)::value>(cluster, (size_t)smem_bytes, &count);
+  });
+  return err == cudaSuccess ? count : -(int)err;
+}
+
 const char* cudaGetErrorString_port(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches `blocks` thread blocks that walk over the tiles of `tile_chains`
-// chains (16 * row_blocks rows each) on `stream`; `scratch` holds blocks *
-// scratch_floats floats. The plan (tile_chains, row_blocks, blocks,
+// Launches `blocks` thread blocks, in clusters of `cluster` (1, 2 or 4) that
+// share a tile, that walk over the tiles of `tile_chains` chains (16 *
+// row_blocks rows each) on `stream`; `scratch` holds blocks / cluster *
+// scratch_floats floats. The plan (tile_chains, row_blocks, blocks, cluster,
 // scratch_floats, smem_bytes) comes from the caller and is held against this
-// file's own formulas. Returns a cudaError_t code (0 on success): a refused
+// file's own formulas, and a clustered launch against the card's count of
+// resident clusters. Returns a cudaError_t code (0 on success): a refused
 // launch never runs, so the caller must check it.
 int fused_force_cl_launch(const float* x, float* out, const float* w, float* scratch, float t,
-                          int batch, int tile_chains, int row_blocks, int blocks,
+                          int batch, int tile_chains, int row_blocks, int blocks, int cluster,
                           long long scratch_floats, int smem_bytes, int n, int c, int heads,
                           int dh, int ff, int layers, void* stream) {
   const Dims d = make_dims(n, c, heads, dh, ff, layers);
-  if (!plan_ok(d, batch, tile_chains, row_blocks, blocks)
+  if (!plan_ok(d, batch, tile_chains, row_blocks, blocks, cluster)
       || scratch_floats != block_scratch_floats(d, tile_chains, 16 * row_blocks)
       || smem_bytes != 4 * smem_floats(d, tile_chains, 16 * row_blocks))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = (size_t)smem_bytes;
-  switch (row_blocks) {
-    case 1: return (int)launch<1>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
-    case 2: return (int)launch<2>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
-    case 3: return (int)launch<3>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
-    case 4: return (int)launch<4>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
-    default: return (int)launch<5>(x, out, w, scratch, t, batch, tile_chains, blocks, smem, d, s);
-  }
+  return (int)by_rows(row_blocks, [&](auto tm) {
+    return launch<decltype(tm)::value>(x, out, w, scratch, t, batch, tile_chains, blocks, cluster,
+                                       smem, d, s);
+  });
 }
 
 }  // extern "C"

@@ -28,6 +28,12 @@
 // The header also holds the row-wise pieces both kernels share (LayerNorm,
 // gated residuals and their backward) and the attention block, which works
 // from shared memory on one chain and a group of its heads at a time.
+//
+// A tile may also be shared by the blocks of a thread-block cluster (K1 at a
+// few chains, see fused_score_cl.cu): then gemm() takes block `rank` of
+// `ranks` and computes that block's share of the output columns, and the
+// attention block that block's share of the heads. A share never cuts a sum:
+// each output element is summed by one thread in the order above.
 // Everything here compiles as plain C++ too (the inline PTX has scalar forms
 // under #ifndef __CUDA_ARCH__), which the CPU emulation in tests/ uses.
 
@@ -41,8 +47,14 @@
 #define TILE_DYNAMIC_SMEM(name) extern __shared__ float4 name[]
 #define TILE_LAUNCH(kernel, grid, block, smem, stream, ...) \
   kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+// A launch of `grid` blocks in clusters of `cluster`, and how many such
+// clusters of `kernel` the card keeps resident at once.
+#define TILE_LAUNCH_CLUSTER(kernel, grid, cluster, block, smem, stream, ...) \
+  tile::launch_clusters(kernel, grid, cluster, block, smem, stream, __VA_ARGS__)
+#define TILE_MAX_ACTIVE_CLUSTERS(count, kernel, cluster, block, smem) \
+  tile::max_active_clusters(count, kernel, cluster, block, smem)
 #endif
-// Without nvcc the including translation unit supplies both macros.
+// Without nvcc the including translation unit supplies the four macros.
 
 namespace tile {
 
@@ -96,6 +108,108 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
+// ------------------------------------------------------------ clusters
+
+// This block's rank in its cluster, the cluster's index in the grid and the
+// number of clusters; a launch without clusters is one of one block each.
+__device__ inline int cluster_rank() {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+#elif defined(__CUDACC__)
+  return 0;
+#else
+  return shim::cluster_rank();
+#endif
+}
+
+__device__ inline int cluster_index() {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+#elif defined(__CUDACC__)
+  return 0;
+#else
+  return shim::cluster_index();
+#endif
+}
+
+__device__ inline int cluster_count() {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return (int)r;
+#elif defined(__CUDACC__)
+  return 1;
+#else
+  return shim::cluster_count();
+#endif
+}
+
+// Every thread of every block of the cluster arrives; what each wrote before
+// (global and shared memory) is seen by all after.
+__device__ inline void cluster_sync() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  shim::cluster_sync();
+#endif
+}
+
+#ifdef __CUDACC__
+template <class... P, class... A>
+inline cudaError_t launch_clusters(void (*kernel)(P...), int grid, int cluster, int block,
+                                   size_t smem, cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <class... P>
+inline cudaError_t max_active_clusters(int* count, void (*kernel)(P...), int cluster, int block,
+                                       size_t smem) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+}
+#endif
+
+// Block `rank` of `ranks` that share a tile: the rows of the row-wise pieces
+// and the output columns of a product it takes (contiguous, a multiple of 4
+// wide), and a barrier over the blocks where one reads what another wrote.
+// One block alone (ranks 1) takes everything and needs no barrier.
+struct Part {
+  int rank = 0, ranks = 1;
+  __device__ void sync() const {
+    if (ranks > 1) cluster_sync();
+  }
+  // First column of this block's share of `out` (a multiple of 4) columns.
+  __device__ int col0(int out) const { return 4 * (out / 4 * rank / ranks); }
+  __device__ int cols(int out) const { return 4 * (out / 4 * (rank + 1) / ranks) - col0(out); }
+};
+
 __device__ inline float gelu(float x) { return 0.5f * x * (1.f + erff(x * 0.70710678118654752f)); }
 
 __device__ inline float gelu_grad(float x) {
@@ -104,6 +218,7 @@ __device__ inline float gelu_grad(float x) {
 }
 
 __device__ inline float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ inline float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ inline void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ inline float sum4(float4 v) { return (v.x + v.y) + (v.z + v.w); }
 __device__ inline float dot4(float4 a, float4 b) {
@@ -140,28 +255,40 @@ enum Epilogue {
 // card, 1000 chains of chignolin: the narrow products take 0.6 of their time
 // with the split; the taller wide tiles were faster alone and slower inside
 // the kernel above 16 rows, 2.32 ms against 2.15 for the call.)
-template <int TM, bool NARROW>
+//
+// A block's share of a product (Part) has fewer columns: a wide share of 16
+// rows takes the 256-column shape where its width is a multiple of 256, else
+// the 128-column one; a narrow share of at most 32 (16) columns stages 32
+// (16) columns, four (two) a thread, at twice the depth where a slot holds
+// that, so that it takes half the chunks. Its depth groups are those of the
+// 64-column shape: group q takes depths 8q .. 8q + 7 of every 32, in order.
+// Wide or narrow, every output element's sum is the same in every shape.
+template <int TM, bool NARROW, int NC = NARROW ? 64 : (TM == 1 ? 256 : 128)>
 struct Shape {
   static constexpr int PASSES = NARROW && TM > 4 ? 2 : 1;  // row halves taken in turn
   static constexpr int ROWS = 16 * TM / PASSES;           // rows staged and multiplied at a time
-  static constexpr int RG = NARROW || TM == 1 ? 8 : 16;
+  static constexpr int RG = NARROW || NC == 256 ? 8 : 16;
   static constexpr int TR = ROWS / RG;
   static constexpr int KSPLIT = NARROW ? 4 : 1;  // groups that share out a chunk's depth
-  static constexpr int NCOLS = NARROW ? 64 : 8 * (NTHREADS / RG);
-  static constexpr int KCH = NCOLS == 256 ? 16 : 32;
+  static constexpr int NCOLS = NC;
+  static constexpr int TC = NARROW ? NC / 8 : 8;  // output columns of a thread
+  // A narrow share stages twice the depth where the slot holds it.
+  static constexpr bool DEEP = NARROW && NC < 64 && ROWS * 68 + 64 * (NC + 8) <= ROWS * XS + KC * WS;
+  static constexpr int KCH = NC == 256 ? 16 : DEEP ? 64 : 32;
   static constexpr int XSW = KCH + 4, WSW = NCOLS + 8;
   static constexpr int SLOT = ROWS * XSW + KCH * WSW;
+  static_assert(NCOLS == (NARROW ? 8 : NTHREADS / RG) * TC, "threads cover the columns");
   static_assert(SLOT <= ROWS * XS + KC * WS, "a slot of the ring holds every chunk shape");
-  static_assert(KSPLIT * ROWS * 64 <= STAGES * (ROWS * XS + KC * WS),
+  static_assert(KSPLIT * ROWS * NCOLS <= STAGES * (ROWS * XS + KC * WS),
                 "the ring holds the partial sums of a split product");
 };
 
-// Copies chunk (k0, o0) of X (rows x K) and W (K x out) into one ring slot;
-// what lies beyond K or out is zero-filled. Requires K % 4 == out % 4 == 0
-// and 16-byte aligned X, W.
+// Copies chunk (k0, o0) of X (rows x K) and W (K x cols, rows ld apart) into
+// one ring slot; what lies beyond K or cols is zero-filled. Requires K % 4 ==
+// cols % 4 == ld % 4 == 0 and 16-byte aligned X, W.
 template <class S>
-__device__ inline void stage_chunk(const float* X, int K, const float* __restrict__ W, int out,
-                                   int k0, int o0, float* slot) {
+__device__ inline void stage_chunk(const float* X, int K, const float* __restrict__ W, int ld,
+                                   int cols, int k0, int o0, float* slot) {
   const float4 zero = {0.f, 0.f, 0.f, 0.f};
   float* xs = slot;
   float* ws = slot + S::ROWS * S::XSW;
@@ -177,8 +304,8 @@ __device__ inline void stage_chunk(const float* X, int K, const float* __restric
   for (int idx = threadIdx.x; idx < S::KCH * c4; idx += NTHREADS) {
     const int kk = idx / c4, o = (idx % c4) * 4;
     float* dst = ws + kk * S::WSW + o;
-    if (k0 + kk < K && o0 + o < out)
-      cp_async16(dst, W + (size_t)(k0 + kk) * out + o0 + o);
+    if (k0 + kk < K && o0 + o < cols)
+      cp_async16(dst, W + (size_t)(k0 + kk) * ld + o0 + o);
     else
       store4(dst, zero);
   }
@@ -201,33 +328,44 @@ __device__ inline void finish4(float4 v, const float* __restrict__ bias, int col
                         finish(v.w + b.w, epi, Y, AUX, at + 3)});
 }
 
-// acc[m][0..7] += a[m] (4 depths of TR rows) times rows k .. k + 3 of the
-// weight chunk at ws, columns c0 .. c0 + 3 and c1 .. c1 + 3.
-template <int TR>
-__device__ inline void tile_fma(float (&acc)[TR][8], const float4 (&a)[TR], const float* ws,
+// acc[m][0..TC-1] += a[m] (4 depths of TR rows) times rows k .. k + 3 of the
+// weight chunk at ws: with TC = 8 columns c0 .. c0 + 3 and c1 .. c1 + 3, with
+// TC = 4 or 2 columns c0 .. c0 + TC - 1.
+template <int TR, int TC>
+__device__ inline void tile_fma(float (&acc)[TR][TC], const float4 (&a)[TR], const float* ws,
                                 int wsw, int c0, int c1) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const float4 b0 = load4(ws + kk * wsw + c0), b1 = load4(ws + kk * wsw + c1);
+    float b[TC];
+    if constexpr (TC == 2) {
+      const float2 b0 = load2(ws + kk * wsw + c0);
+      b[0] = b0.x; b[1] = b0.y;
+    } else {
+      const float4 b0 = load4(ws + kk * wsw + c0);
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      if constexpr (TC == 8) {
+        const float4 b1 = load4(ws + kk * wsw + c1);
+        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+      }
+    }
 #pragma unroll
     for (int m = 0; m < TR; ++m) {
       const float av = kk == 0 ? a[m].x : kk == 1 ? a[m].y : kk == 2 ? a[m].z : a[m].w;
-      acc[m][0] = fmaf(av, b0.x, acc[m][0]); acc[m][1] = fmaf(av, b0.y, acc[m][1]);
-      acc[m][2] = fmaf(av, b0.z, acc[m][2]); acc[m][3] = fmaf(av, b0.w, acc[m][3]);
-      acc[m][4] = fmaf(av, b1.x, acc[m][4]); acc[m][5] = fmaf(av, b1.y, acc[m][5]);
-      acc[m][6] = fmaf(av, b1.z, acc[m][6]); acc[m][7] = fmaf(av, b1.w, acc[m][7]);
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[m][j] = fmaf(av, b[j], acc[m][j]);
     }
   }
 }
 
 // A wide product: every thread works on whole chunks. One pass of the ring
-// over all (output chunk, depth chunk) steps.
-template <int TM>
+// over all (output chunk, depth chunk) steps. W, Y and AUX have rows ld
+// floats apart, of which the product takes the first `cols`.
+template <int TM, int NC>
 __device__ inline void gemm_whole_chunks(const float* X, int K, const float* __restrict__ W,
-                                         const float* __restrict__ bias, float* Y, int out,
-                                         int epi, float* AUX, float* smem) {
-  using S = Shape<TM, false>;
-  const int n_kc = (K + S::KCH - 1) / S::KCH, n_oc = (out + S::NCOLS - 1) / S::NCOLS;
+                                         const float* __restrict__ bias, float* Y, int ld,
+                                         int cols, int epi, float* AUX, float* smem) {
+  using S = Shape<TM, false, NC>;
+  const int n_kc = (K + S::KCH - 1) / S::KCH, n_oc = (cols + S::NCOLS - 1) / S::NCOLS;
   const int steps = n_oc * n_kc;
   // Blocks start at different output chunks, so that the blocks of a launch do
   // not all ask L2 for the same weight lines at once. The order along K, which
@@ -243,8 +381,8 @@ __device__ inline void gemm_whole_chunks(const float* X, int K, const float* __r
 
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < steps)
-      stage_chunk<S>(X, K, W, out, (s % n_kc) * S::KCH, ((s / n_kc + rot) % n_oc) * S::NCOLS,
-                     smem + s * S::SLOT);
+      stage_chunk<S>(X, K, W, ld, cols, (s % n_kc) * S::KCH,
+                     ((s / n_kc + rot) % n_oc) * S::NCOLS, smem + s * S::SLOT);
     cp_async_commit();
   }
   for (int s = 0; s < steps; ++s) {
@@ -254,7 +392,7 @@ __device__ inline void gemm_whole_chunks(const float* X, int K, const float* __r
     __syncthreads();
     const int nxt = s + STAGES - 1;
     if (nxt < steps)
-      stage_chunk<S>(X, K, W, out, (nxt % n_kc) * S::KCH,
+      stage_chunk<S>(X, K, W, ld, cols, (nxt % n_kc) * S::KCH,
                      ((nxt / n_kc + rot) % n_oc) * S::NCOLS, smem + (nxt % STAGES) * S::SLOT);
     cp_async_commit();
 
@@ -273,18 +411,18 @@ __device__ inline void gemm_whole_chunks(const float* X, int K, const float* __r
       float4 a[S::TR];
 #pragma unroll
       for (int m = 0; m < S::TR; ++m) a[m] = load4(xs + (ty + S::RG * m) * S::XSW + k4);
-      tile_fma<S::TR>(acc, a, ws + k4 * S::WSW, S::WSW, 4 * tx, S::NCOLS / 2 + 4 * tx);
+      tile_fma<S::TR, 8>(acc, a, ws + k4 * S::WSW, S::WSW, 4 * tx, S::NCOLS / 2 + 4 * tx);
     }
     if (kc == n_kc - 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = o0 + h * (S::NCOLS / 2) + 4 * tx;
-        if (col < out) {
+        if (col < cols) {
 #pragma unroll
           for (int m = 0; m < S::TR; ++m)
             finish4(float4{acc[m][4 * h], acc[m][4 * h + 1], acc[m][4 * h + 2],
                            acc[m][4 * h + 3]},
-                    bias, col, epi, Y, AUX, (size_t)(ty + S::RG * m) * out + col);
+                    bias, col, epi, Y, AUX, (size_t)(ty + S::RG * m) * ld + col);
         }
       }
     }
@@ -293,30 +431,32 @@ __device__ inline void gemm_whole_chunks(const float* X, int K, const float* __r
   __syncthreads();
 }
 
-// A narrow product: 64 output columns a pass, the depth of
-// every chunk split over KSPLIT groups of threads. Group q takes depths
-// q KQ .. q KQ + KQ - 1 of each chunk; in it thread (ty, tx) owns rows
-// ty + RG m and columns 4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3. At the
-// end of a pass the groups' sums meet in the ring and are added in the order
-// of the groups. A tile of 80 rows makes two passes, one for each half.
-template <int TM>
+// A narrow product: NC output columns a pass (64, or 32 or 16 for a block's
+// share), the depth of every chunk split over KSPLIT groups of threads. Group
+// q takes depths 8q .. 8q + 7 of every 32 of each chunk, in order; in it
+// thread (ty, tx) owns rows ty + RG m and TC columns (64: 4 tx .. 4 tx + 3 and
+// 32 + 4 tx .. 32 + 4 tx + 3; 32 and 16: TC tx .. TC tx + TC - 1). At the end
+// of a pass the groups' sums meet in the ring and are added in the order of
+// the groups. A tile of 80 rows makes two passes, one for each half.
+template <int TM, int NC>
 __device__ inline void gemm_split_depth(const float* X0, int K, const float* __restrict__ W,
-                                        const float* __restrict__ bias, float* Y, int out,
+                                        const float* __restrict__ bias, float* Y, int ld, int cols,
                                         int epi, float* AUX, float* smem) {
-  using S = Shape<TM, true>;
-  constexpr int GROUP = NTHREADS / S::KSPLIT, KQ = S::KCH / S::KSPLIT;
+  using S = Shape<TM, true, NC>;
+  constexpr int GROUP = NTHREADS / S::KSPLIT, KQ = 32 / S::KSPLIT, TC = S::TC;
   const int q = threadIdx.x / GROUP, tx = threadIdx.x % 8, ty = (threadIdx.x % GROUP) / 8;
+  const int c0 = TC == 8 ? 4 * tx : TC * tx, c1 = NC / 2 + 4 * tx;
   const int n_kc = (K + S::KCH - 1) / S::KCH;
-  float acc[S::TR][8];
-  for (int pass = 0; pass < S::PASSES * ((out + S::NCOLS - 1) / S::NCOLS); ++pass) {
+  float acc[S::TR][TC];
+  for (int pass = 0; pass < S::PASSES * ((cols + S::NCOLS - 1) / S::NCOLS); ++pass) {
     const int o0 = (pass / S::PASSES) * S::NCOLS, row0 = (pass % S::PASSES) * S::ROWS;
     const float* X = X0 + (size_t)row0 * K;
 #pragma unroll
     for (int m = 0; m < S::TR; ++m)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+      for (int j = 0; j < TC; ++j) acc[m][j] = 0.f;
     for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_kc) stage_chunk<S>(X, K, W, out, s * S::KCH, o0, smem + s * S::SLOT);
+      if (s < n_kc) stage_chunk<S>(X, K, W, ld, cols, s * S::KCH, o0, smem + s * S::SLOT);
       cp_async_commit();
     }
     for (int s = 0; s < n_kc; ++s) {
@@ -324,37 +464,45 @@ __device__ inline void gemm_split_depth(const float* X0, int K, const float* __r
       __syncthreads();
       const int nxt = s + STAGES - 1;
       if (nxt < n_kc)
-        stage_chunk<S>(X, K, W, out, nxt * S::KCH, o0, smem + (nxt % STAGES) * S::SLOT);
+        stage_chunk<S>(X, K, W, ld, cols, nxt * S::KCH, o0, smem + (nxt % STAGES) * S::SLOT);
       cp_async_commit();
       const float* xs = smem + (s % STAGES) * S::SLOT;
       const float* ws = xs + S::ROWS * S::XSW;
 #pragma unroll
-      for (int k4 = q * KQ; k4 < q * KQ + KQ; k4 += 4) {
-        float4 a[S::TR];
+      for (int k32 = 0; k32 < S::KCH; k32 += 32) {
 #pragma unroll
-        for (int m = 0; m < S::TR; ++m) a[m] = load4(xs + (ty + S::RG * m) * S::XSW + k4);
-        tile_fma<S::TR>(acc, a, ws + k4 * S::WSW, S::WSW, 4 * tx, 32 + 4 * tx);
+        for (int k4 = k32 + q * KQ; k4 < k32 + q * KQ + KQ; k4 += 4) {
+          float4 a[S::TR];
+#pragma unroll
+          for (int m = 0; m < S::TR; ++m) a[m] = load4(xs + (ty + S::RG * m) * S::XSW + k4);
+          tile_fma<S::TR, TC>(acc, a, ws + k4 * S::WSW, S::WSW, c0, c1);
+        }
       }
     }
     cp_async_wait<0>();
     __syncthreads();  // every thread is done with the ring: the sums take its place
 #pragma unroll
     for (int m = 0; m < S::TR; ++m) {
-      float* dst = smem + ((size_t)q * S::ROWS + ty + S::RG * m) * 64;
-      store4(dst + 4 * tx, float4{acc[m][0], acc[m][1], acc[m][2], acc[m][3]});
-      store4(dst + 32 + 4 * tx, float4{acc[m][4], acc[m][5], acc[m][6], acc[m][7]});
+      float* dst = smem + ((size_t)q * S::ROWS + ty + S::RG * m) * NC;
+#pragma unroll
+      for (int j = 0; j < TC; j += 4)
+        if constexpr (TC == 2)
+          dst[c0] = acc[m][0], dst[c0 + 1] = acc[m][1];
+        else
+          store4(dst + (j < 4 ? c0 : c1), float4{acc[m][j], acc[m][j + 1], acc[m][j + 2],
+                                                 acc[m][j + 3]});
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < S::ROWS * 16; idx += NTHREADS) {
-      const int r = idx / 16, c4 = (idx % 16) * 4;
-      if (o0 + c4 < out) {
-        float4 v = load4(smem + (size_t)r * 64 + c4);
+    for (int idx = threadIdx.x; idx < S::ROWS * (NC / 4); idx += NTHREADS) {
+      const int r = idx / (NC / 4), c4 = (idx % (NC / 4)) * 4;
+      if (o0 + c4 < cols) {
+        float4 v = load4(smem + (size_t)r * NC + c4);
 #pragma unroll
         for (int p = 1; p < S::KSPLIT; ++p) {
-          const float4 w = load4(smem + ((size_t)p * S::ROWS + r) * 64 + c4);
+          const float4 w = load4(smem + ((size_t)p * S::ROWS + r) * NC + c4);
           v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
         }
-        finish4(v, bias, o0 + c4, epi, Y, AUX, (size_t)(row0 + r) * out + o0 + c4);
+        finish4(v, bias, o0 + c4, epi, Y, AUX, (size_t)(row0 + r) * ld + o0 + c4);
       }
     }
     __syncthreads();
@@ -365,16 +513,41 @@ __device__ inline void gemm_split_depth(const float* X0, int K, const float* __r
 // file. X (rows x K), Y and AUX (rows x out) in the block's global scratch,
 // W (K x out) row-major and bias in global memory; `smem` holds
 // gemm_smem_floats(16 * TM) floats. NARROW products stage 64 output columns at
-// a time (for out <= 64, or a few times that), the others 128 or 256. Every
-// thread of the block must call it; it starts and ends with the block in step.
+// a time (for out <= 64, or a few times that), the others 128 or 256. With
+// part.ranks > 1 the block computes its share of the columns (Part::cols from
+// Part::col0), the other blocks of the cluster the rest. Every thread of the
+// block must call it; it starts and ends with the block in step.
 template <int TM, bool NARROW>
 __device__ __noinline__ void gemm(const float* X, int K, const float* __restrict__ W,
                                   const float* __restrict__ bias, float* Y, int out, int epi,
-                                  float* AUX, float* smem) {
-  if constexpr (NARROW)
-    gemm_split_depth<TM>(X, K, W, bias, Y, out, epi, AUX, smem);
-  else
-    gemm_whole_chunks<TM>(X, K, W, bias, Y, out, epi, AUX, smem);
+                                  float* AUX, float* smem, Part part = Part()) {
+  if (part.ranks == 1) {
+    if constexpr (NARROW)
+      gemm_split_depth<TM, 64>(X, K, W, bias, Y, out, out, epi, AUX, smem);
+    else
+      gemm_whole_chunks<TM, TM == 1 ? 256 : 128>(X, K, W, bias, Y, out, out, epi, AUX, smem);
+    return;
+  }
+  const int c0 = part.col0(out), cols = part.cols(out);
+  W += c0;
+  Y += c0;
+  if (bias) bias += c0;
+  if (AUX) AUX += c0;
+  if constexpr (NARROW) {
+    if (cols <= 16)
+      gemm_split_depth<TM, 16>(X, K, W, bias, Y, out, cols, epi, AUX, smem);
+    else if (cols <= 32)
+      gemm_split_depth<TM, 32>(X, K, W, bias, Y, out, cols, epi, AUX, smem);
+    else
+      gemm_split_depth<TM, 64>(X, K, W, bias, Y, out, cols, epi, AUX, smem);
+  } else if constexpr (TM == 1) {
+    if (cols % 256 == 0)
+      gemm_whole_chunks<1, 256>(X, K, W, bias, Y, out, cols, epi, AUX, smem);
+    else
+      gemm_whole_chunks<1, 128>(X, K, W, bias, Y, out, cols, epi, AUX, smem);
+  } else {
+    gemm_whole_chunks<TM, 128>(X, K, W, bias, Y, out, cols, epi, AUX, smem);
+  }
 }
 
 // ------------------------------------------------------------ row-wise pieces
@@ -749,6 +922,7 @@ __device__ inline void head_mix(const float* M, const float* Z, int ldz, float* 
 // What the attention block of a layer reads and writes, for a tile.
 struct Attention {
   int chains, n, heads, dh, rows;  // rows of the tile, those beyond chains * n padding
+  int head0 = 0, part_heads = 0;   // this block's heads: head0 on, part_heads of them (0: all)
   float scale;
   const float* x;   // (chains * n, 3) centred coordinates, shared memory
   float* dx;        // their gradient, shared memory
@@ -774,12 +948,13 @@ __device__ inline void zero_padding_rows(float* Y, int ld, int width, int real, 
 // k' = k + xc Kc and v' likewise where kc is given. U is (rows, inner).
 __device__ inline void attention_fwd(const Attention& t, float* U, float* smem) {
   const int n = t.n, I = t.heads * t.dh, I3 = 3 * I;
-  const int G = head_group(n, t.heads, t.dh), W = G * t.dh, ld = 3 * W + 4;
+  const int hb = t.head0, he = t.part_heads ? hb + t.part_heads : t.heads;
+  const int G = head_group(n, he - hb, t.dh), W = G * t.dh, ld = 3 * W + 4;
   float *sq = smem, *sk = smem + W, *sv = smem + 2 * W, *sp = smem + n * ld;
-  zero_padding_rows(U, I, I, t.chains * n, t.rows);
+  zero_padding_rows(U + hb * t.dh, I, (he - hb) * t.dh, t.chains * n, t.rows);
   for (int c = 0; c < t.chains; ++c) {
     const float* xc = t.x + c * n * 3;
-    for (int g0 = 0; g0 < t.heads; g0 += G) {
+    for (int g0 = hb; g0 < he; g0 += G) {
       const float* src = t.qkv + (size_t)c * n * I3 + g0 * t.dh;
       const int vecs = (c * t.heads + g0) * n;  // the unit's place among [chain][head][i]
       stage_rows(src, I3, sq, ld, n, W);
@@ -803,17 +978,23 @@ __device__ inline void attention_fwd(const Attention& t, float* U, float* smem) 
 // Backward of attention_fwd: from DU = dL/dU (rows, inner) the gradients
 // DQKV = dq | dk' | dv' (rows, 3 inner), and the part of dL/dxc that passes
 // through the squared distances (into t.dx). g (with kd) is [chain][head][i]
-// du_i . kd; dqs is room for as many floats.
+// du_i . kd; dqs is room for as many floats. A block with a share of the
+// heads reads and writes only their columns.
 __device__ inline void attention_bwd(const Attention& t, const float* DU, float* DQKV,
                                      const float* g, float* dqs, float* smem) {
   const int n = t.n, I = t.heads * t.dh, I3 = 3 * I;
-  const int G = head_group(n, t.heads, t.dh), W = G * t.dh, ld = 4 * W + 4;
+  const int hb = t.head0, he = t.part_heads ? hb + t.part_heads : t.heads;
+  const int G = head_group(n, he - hb, t.dh), W = G * t.dh, ld = 4 * W + 4;
   float *sq = smem, *sk = smem + W, *sv = smem + 2 * W, *sdu = smem + 3 * W;
   float *sp = smem + n * ld, *sds = sp + round4((long long)G * n * n);
-  zero_padding_rows(DQKV, I3, I3, t.chains * n, t.rows);
+  if (he - hb == t.heads)
+    zero_padding_rows(DQKV, I3, I3, t.chains * n, t.rows);
+  else
+    for (int part = 0; part < 3; ++part)
+      zero_padding_rows(DQKV + part * I + hb * t.dh, I3, (he - hb) * t.dh, t.chains * n, t.rows);
   for (int c = 0; c < t.chains; ++c) {
     const float* xc = t.x + c * n * 3;
-    for (int g0 = 0; g0 < t.heads; g0 += G) {
+    for (int g0 = hb; g0 < he; g0 += G) {
       const float* src = t.qkv + (size_t)c * n * I3 + g0 * t.dh;
       float* dst = DQKV + (size_t)c * n * I3 + g0 * t.dh;
       const int vecs = (c * t.heads + g0) * n;

@@ -249,10 +249,12 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         ints6 = [ctypes.c_int] * 6
         lib.fused_force_cl_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5
             + [ctypes.c_longlong, ctypes.c_int] + ints6 + [ctypes.c_void_p]
         )
         lib.fused_force_cl_launch.restype = ctypes.c_int
+        lib.fused_force_cl_resident_clusters.argtypes = [ctypes.c_int] * 3
+        lib.fused_force_cl_resident_clusters.restype = ctypes.c_int
         lib.fused_force_cl_weight_floats.argtypes = ints6
         lib.fused_force_cl_weight_floats.restype = ctypes.c_longlong
         lib.cudaGetErrorString_port.argtypes = [ctypes.c_int]
@@ -265,18 +267,38 @@ def _dims(fw: FoldedCL):
     return (fw.n, fw.c, fw.heads, fw.dh, fw.ff, fw.n_layers)
 
 
+def _resident_clusters(lib):
+    """``plan_tiles``' count of the clusters of a plan's launch that the
+    current card keeps resident (the library asks the card once for each
+    tile height, shared memory and cluster size)."""
+
+    def count(plan, size):
+        got = lib.fused_force_cl_resident_clusters(plan.row_blocks, size, plan.smem_bytes)
+        if got < 0:
+            raise RuntimeError("the card does not say how many clusters it keeps resident: "
+                               + lib.cudaGetErrorString_port(-got).decode())
+        return got
+
+    return count
+
+
 def fused_force_cl(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
     """Fused force evaluation: (B, N, 3) float32 -> eps_hat (B, N, 3).
 
     On a CPU tensor this runs :func:`fused_force_cl_reference`. On a CUDA
     tensor it launches the kernel or raises; it never falls back. The
-    number of kernel launches is counted in ``fused_force_cl.launches``.
+    number of kernel launches is counted in ``fused_force_cl.launches``,
+    those whose tiles are shared by a cluster of blocks in
+    ``fused_force_cl.clustered``.
 
     The kernel runs a fixed grid of thread blocks that walk over tiles of
     several chains (:func:`twoforone_torch.ops.tile_plan.plan_tiles` picks
-    the tile size from the chain count); each block has its own scratch for
-    activations and residuals, so the scratch does not grow with the chain
-    count. A chain's result does not depend on the batch it arrives in.
+    the tile size from the chain count); each tile in flight has its own
+    scratch for activations and residuals, so the scratch does not grow with
+    the chain count. Where so few tiles would leave blocks idle, the blocks of
+    a thread-block cluster share each tile, each computing a share of every
+    product's columns and of the heads. A chain's result does not depend on
+    the batch it arrives in, nor on the blocks that share its tile.
     """
     if x.device.type == "cpu":
         return fused_force_cl_reference(x, t, fw)
@@ -304,13 +326,14 @@ def fused_force_cl(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
     out = torch.empty_like(x)
     if bsz == 0:
         return out
-    plan = plan_tiles(bsz, *_dims(fw), sm_count(x.device.index))
-    scratch = torch.empty(plan.blocks * plan.scratch_floats, dtype=torch.float32,
+    plan = plan_tiles(bsz, *_dims(fw), sm_count(x.device.index),
+                      resident_clusters=_resident_clusters(lib))
+    scratch = torch.empty(plan.groups * plan.scratch_floats, dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_force_cl_launch(
         x.data_ptr(), out.data_ptr(), fw.flat.data_ptr(), scratch.data_ptr(), float(t), bsz,
-        plan.chains_per_tile, plan.row_blocks, plan.blocks, plan.scratch_floats,
+        plan.chains_per_tile, plan.row_blocks, plan.blocks, plan.cluster, plan.scratch_floats,
         plan.smem_bytes, *_dims(fw), stream,
     )
     if rc != 0:
@@ -318,7 +341,9 @@ def fused_force_cl(x: torch.Tensor, t: float, fw: FoldedCL) -> torch.Tensor:
             f"fused_force_cl kernel launch failed: {lib.cudaGetErrorString_port(rc).decode()}"
         )
     fused_force_cl.launches += 1
+    fused_force_cl.clustered += int(plan.cluster > 1)
     return out
 
 
 fused_force_cl.launches = 0
+fused_force_cl.clustered = 0

@@ -5,16 +5,18 @@ thread blocks that walk over *tiles* of ``chains_per_tile`` chains; a tile's
 ``chains_per_tile * N`` rows, padded to a multiple of 16, go through every
 projection of the network as one matrix product (``csrc/tile_gemm.cuh``).
 :func:`plan_tiles` picks the tile size from the chain count and works out
-what a launch needs: rows, tiles, thread blocks, scratch floats per block and
-bytes of shared memory. The numbers are passed to the launch as plain
-integers; the CUDA sources hold them against their own formulas and refuse a
-launch that disagrees, so this module is the one place that decides them and
-the CPU tests cover it.
+what a launch needs: rows, tiles, thread blocks, the blocks that share a tile
+(a thread-block cluster), scratch floats per tile and bytes of shared
+memory. The numbers are passed to the launch as plain integers; the CUDA
+sources hold them against their own formulas and refuse a launch that
+disagrees, so this module is the one place that decides them and the CPU
+tests cover it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 # Constants of csrc/tile_gemm.cuh (namespace ``tile``).
 KC = 32  # depth of a staged chunk
@@ -35,6 +37,8 @@ MAX_BLOCKS_PER_SM = 2
 # A tile's time grows with its rows, on top of a fixed part (the passes over
 # the weights, the barriers) that is worth about this many rows.
 OVERHEAD_ROWS = 16
+# Blocks that may share a tile (fused_score_cl.cu), largest first.
+CLUSTER_SIZES = (4, 2)
 
 
 @dataclass(frozen=True)
@@ -42,13 +46,24 @@ class TilePlan:
     chains_per_tile: int
     row_blocks: int  # a tile has 16 * row_blocks rows
     tiles: int
-    blocks: int  # thread blocks of the launch, each walks over tiles
-    scratch_floats: int  # global scratch of ONE block
+    blocks: int  # thread blocks of the launch; each cluster of them walks over tiles
+    scratch_floats: int  # global scratch of ONE tile in flight (a cluster's)
     smem_bytes: int  # dynamic shared memory of one block
+    cluster: int = 1  # blocks of a thread-block cluster, which share each tile
 
     @property
     def rows(self) -> int:
         return 16 * self.row_blocks
+
+    @property
+    def groups(self) -> int:
+        """Tiles in flight at once, each with its own scratch: the clusters."""
+        return self.blocks // self.cluster
+
+
+def resident_blocks(smem: int, sm_count: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory that the card keeps resident."""
+    return min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES)) * sm_count
 
 
 def _round4(v: int) -> int:
@@ -117,31 +132,35 @@ def max_chains_per_tile(n: int) -> int:
 
 
 def plan_at(chains_per_tile: int, batch: int, n: int, c: int, heads: int, dh: int, ff: int,
-            layers: int, sm_count: int, distances: bool = False) -> TilePlan:
-    """What a launch over ``batch`` chains needs at a given tile size.
-    :func:`plan_tiles` chooses among these; the tests and the timing scripts
-    also ask for a tile size of their own."""
+            layers: int, sm_count: int, distances: bool = False, cluster: int = 1) -> TilePlan:
+    """What a launch over ``batch`` chains needs at a given tile size, each
+    tile shared by ``cluster`` blocks. :func:`plan_tiles` chooses among these;
+    the tests and the timing scripts also ask for a tile size or a cluster of
+    their own."""
     t = chains_per_tile
     if not 1 <= t <= max_chains_per_tile(n):
         raise ValueError(f"chains_per_tile must be in 1..{max_chains_per_tile(n)}, got {t}")
+    if cluster != 1 and (cluster not in CLUSTER_SIZES or heads % cluster):
+        raise ValueError(f"a tile is shared by 1 block or by {CLUSTER_SIZES} that divide the "
+                         f"{heads} heads, got {cluster}")
     row_blocks = -(-t * n // 16)
     rows = 16 * row_blocks
     smem = smem_bytes(t, rows, n, heads, dh, distances)
     if smem > BLOCK_SMEM_BYTES:
         raise ValueError(f"a tile of {t} chains of {n} beads needs {smem} bytes of "
                          "shared memory")
-    per_sm = min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES))
     tiles = -(-batch // t)
     return TilePlan(
         chains_per_tile=t, row_blocks=row_blocks, tiles=tiles,
-        blocks=min(tiles, per_sm * sm_count),
+        blocks=cluster * min(tiles, resident_blocks(smem, sm_count) // cluster),
         scratch_floats=scratch_floats(t, rows, n, c, heads * dh, ff, heads, layers, distances),
-        smem_bytes=smem,
+        smem_bytes=smem, cluster=cluster,
     )
 
 
 def plan_tiles(batch: int, n: int, c: int, heads: int, dh: int, ff: int, layers: int,
-               sm_count: int, distances: bool = False) -> TilePlan:
+               sm_count: int, distances: bool = False,
+               resident_clusters: Optional[Callable[[TilePlan, int], int]] = None) -> TilePlan:
     """The tiling of a launch over ``batch`` chains of ``n`` beads on a card
     with ``sm_count`` SMs.
 
@@ -151,6 +170,13 @@ def plan_tiles(batch: int, n: int, c: int, heads: int, dh: int, ff: int, layers:
     chains give full tiles, so that a pass over the weights serves many rows;
     fewer chains than resident blocks give tiles of one chain, so that every
     chain has a block of its own.
+
+    A kernel whose blocks can share a tile passes ``resident_clusters(plan,
+    size)``, the card's count of resident clusters of ``size`` blocks of the
+    plan's launch. Then, where so few tiles leave blocks idle, each tile goes
+    to a cluster: the largest size in ``CLUSTER_SIZES`` that divides ``heads``
+    and whose clusters, one a tile, are all resident at once, also within the
+    resident blocks. Without it, or where no size fits, a tile has one block.
     """
     if batch < 1:
         raise ValueError(f"a launch needs at least one chain, got {batch}")
@@ -165,5 +191,14 @@ def plan_tiles(batch: int, n: int, c: int, heads: int, dh: int, ff: int, layers:
         return (waves * (p.rows + OVERHEAD_ROWS), -p.chains_per_tile)
 
     sizes = range(1, min(max_chains_per_tile(n), batch) + 1)
-    return min((plan_at(t, batch, n, c, heads, dh, ff, layers, sm_count, distances)
+    best = min((plan_at(t, batch, n, c, heads, dh, ff, layers, sm_count, distances)
                 for t in sizes), key=cost)
+    if resident_clusters is None:
+        return best
+    room = resident_blocks(best.smem_bytes, sm_count)
+    for size in CLUSTER_SIZES:
+        if (heads % size == 0 and best.tiles * size <= room
+                and best.tiles <= resident_clusters(best, size)):
+            return plan_at(best.chains_per_tile, batch, n, c, heads, dh, ff, layers, sm_count,
+                           distances, cluster=size)
+    return best

@@ -36,17 +36,18 @@ import torch
 
 def _counters():
     """(wrapper, attribute) of every kernel launch counter, in the order
-    (K1, K2, K3, K4)."""
+    (K1, K2, K3, K4, K1's launches on clusters of blocks)."""
     from twoforone_torch.ops import attention_cl_core, fused_score, fused_score_cl
 
     return ((fused_score_cl.fused_force_cl, "launches"),
             (attention_cl_core.cl_attention_core, "launches_fwd"),
             (attention_cl_core.cl_attention_core, "launches_bwd"),
-            (fused_score.fused_force, "launches"))
+            (fused_score.fused_force, "launches"),
+            (fused_score_cl.fused_force_cl, "clustered"))
 
 
 def kernel_launches() -> tuple:
-    """The launch counters of K1, K2, K3 and K4."""
+    """The launch counters of K1, K2, K3 and K4, and K1's clustered launches."""
     return tuple(getattr(fn, name) for fn, name in _counters())
 
 
