@@ -77,10 +77,15 @@ class Driver:
         pick = int(self.cell.rng("compare").integers(self.window_units))
         return [0, self.warmup + pick]
 
-    def reference(self, k: int) -> torch.Tensor:
-        """The reference's coordinates at the end of call ``k``, under the
-        caller's TF32 setting: from the benchmark's own start for the first
-        call, else from the program's state before the call."""
+    def references(self, ks: list, dtype=None) -> list:
+        """The reference's coordinates at the end of each call of ``ks``, in
+        ``dtype`` (float32 by default) under the caller's TF32 setting."""
+        return [self.reference(k, dtype or torch.float32) for k in ks]
+
+    def reference(self, k: int, dtype) -> torch.Tensor:
+        """The reference's coordinates at the end of call ``k``: from the
+        benchmark's own start for the first call, else from the program's
+        state before the call."""
         from benchmark.reference import langevin as ref
         from benchmark.reference.network import tensors
 
@@ -88,11 +93,11 @@ class Driver:
         state = self.calls[k][0]
         if k == 0:
             state = {"x": self.start, "v": np.zeros_like(self.start), "t": 0}
-        x = torch.tensor(state["x"], device=dev)
-        v = torch.tensor(state["v"], device=dev)
+        x = torch.tensor(state["x"], dtype=dtype, device=dev)
+        v = torch.tensor(state["v"], dtype=dtype, device=dev)
         gen = torch.Generator(device=dev).manual_seed(self.noise_seed)
         ref.skip_draws(gen, tuple(x.shape), int(state["t"]))
-        xr, _ = ref.run(tensors(self.params, dev), x, v, self.steps, gen,
+        xr, _ = ref.run(tensors(self.params, dev, dtype), x, v, self.steps, gen,
                         ref.constants(c, tr["dt"], tr["mass"], tr["friction"]),
                         tr["max_force"], tr["restraint_k"])
         return xr
@@ -109,6 +114,7 @@ class Driver:
                 "chains_off": count_over(gaps, self.cell.limits["x_gap_q3"])}
 
     def check(self) -> list:
-        values = [self.numbers(self.answer(k), self.reference(k)) for k in self.compared()]
+        ks = self.compared()
+        values = [self.numbers(self.answer(k), ref) for k, ref in zip(ks, self.references(ks))]
         return [{"name": name, "value": widest(v[name] for v in values), "limit": limit}
                 for name, limit in self.cell.limits.items()]

@@ -5,16 +5,17 @@ by the trainer's ``batch_iterator``, then ``Trainer._train_chunk``, which
 draws each step's rotations, timesteps and noise from the generator it is
 given.
 
-Inputs from the seed: the synthetic training frames, the starting weights
-(drawn on the device), the iterator's seed and the seed of the trainer's
-generator. Set-up drives the one trainer through its first
-``followed_steps`` steps (one-step chunks, on rows that all differ), keeps
-what the check reads, and warms up past the EMA's copy phase; the window
-then drives the same trainer. The check follows with the reference, its
-draws made again from the generator's seed: the first steps from the
-benchmark's own weights (each step's loss, the first gradient as the
-optimizer got it, each leaf's change of weights and of the EMA), and one
-window chunk drawn from the seed among the first ``COMPARED_WITHIN`` from
+Inputs from the seed: the synthetic training frames (at the configuration's
+bead count: ``synthetic.chain_components``), the starting weights (drawn on
+the device), the iterator's seed and the seed of the trainer's generator.
+Set-up drives the one trainer through its first ``followed_steps`` steps
+(one-step chunks, on rows that all differ), keeps what the check reads, and
+warms up past the EMA's copy phase; the window then drives the same
+trainer. The check follows with the reference, its draws made again from
+the generator's seed: the first steps from the benchmark's own weights
+(each step's loss, the first gradient as the optimizer got it, each leaf's
+change of weights and of the EMA), and one window chunk drawn from the seed
+among the first ``COMPARED_WITHIN`` from
 the program's state before it (weights, EMA, Adam's moments and count; each
 leaf's change of weights and of the EMA over the chunk, across EMA updates
 on the decay ramp).
@@ -35,6 +36,13 @@ from benchmark.reference.network import flat_leaves
 COMPARED_WITHIN = 4  # the compared window chunk is one of the window's first
 
 
+def training_frames(cell) -> np.ndarray:
+    """The cell's synthetic training frames (frames, beads, 3), float32."""
+    return synthetic.chain_dataset(cell.traffic["frames"],
+                                   synthetic.chain_components(cell.config["n_beads"]),
+                                   seed=cell.seed_for("frames"))
+
+
 class Driver:
     def __init__(self, cell):
         from twoforone_torch.core.diffusion import GaussianDiffusion
@@ -51,8 +59,7 @@ class Driver:
         self.published = c["train"]
         if self.published["loss_weights"] != "ones":
             raise ValueError("the reference draws timesteps under the loss weights 'ones' only")
-        frames = synthetic.chain_dataset(tr["frames"], synthetic.CHAIN10_TORSION_COMPONENTS,
-                                         seed=cell.seed_for("frames"))
+        frames = training_frames(cell)
         if frames.shape[1] != n:
             raise ValueError(f"the synthetic chains have {frames.shape[1]} beads, not {n}")
         self.norm_factor = float(frames.std())  # the training CLI's scale_data

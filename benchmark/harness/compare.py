@@ -23,6 +23,17 @@ def chain_gaps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return per_chain if bool(torch.isfinite(got).all()) else torch.full_like(per_chain, math.nan)
 
 
+def sample_gaps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Each sample's (leading axis) widest difference of ``got`` from
+    ``ref``, over the median sample's widest entry of ``ref`` (all NaN where
+    ``got`` holds a non-finite number). The median and not the widest: one
+    sample that a sampler's blow-up guard holds near its clamp would shrink
+    every other sample's gap by its own size."""
+    widths = ref.abs().flatten(1).amax(1)
+    per_sample = (got - ref).abs().flatten(1).amax(1) / widths.median()
+    return per_sample if bool(torch.isfinite(got).all()) else torch.full_like(per_sample, math.nan)
+
+
 def upper_quartile(gaps: torch.Tensor) -> float:
     return float(torch.quantile(gaps.double(), 0.75))
 

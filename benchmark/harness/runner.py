@@ -4,7 +4,9 @@ units, the check against the reference, and the result line.
 The window runs whole timed units (a Langevin call, a sampling batch, a
 training chunk), each ending in a synchronisation, until ``--seconds`` have
 passed; the window ends with the unit that crosses it. Every rate is the
-window's work over the window's time. Set-up is the process's time up to the
+window's work over the window's time; the result line also lists each
+unit's seconds (``unit_s``), which show a run that changed pace inside
+its window. Set-up is the process's time up to the
 first timed unit. With ``--trace 1`` the same window runs untraced, then
 one more unit runs under the profiler for the per-layer metrics.
 """
@@ -94,13 +96,13 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, t0: floa
     cell.mark("warm-up")
     setup_s = time.time() - t0
     start = time.perf_counter()
-    units = 0
+    ends = [start]  # each unit's end on the same clock
     while True:
         driver.unit()
-        units += 1
-        if time.perf_counter() - start >= seconds:
+        ends.append(time.perf_counter())
+        if ends[-1] - start >= seconds:
             break
-    window_s = time.perf_counter() - start
+    units, window_s = len(ends) - 1, ends[-1] - start
     driver.window_units = units
     failed = driver.failed_units()
     peak = torch.cuda.max_memory_allocated(device) if card else 0
@@ -131,9 +133,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, t0: floa
         dev.update(busy_s=traced.busy_s, window_s=traced.window_s)
         result["breakdown"] = traced.breakdown()
     result["card"] = label
-    ends = [t0] + [t for _, t in cell.marks]
-    result["setup_parts_s"] = {p: ends[i + 1] - ends[i] for i, (p, _) in enumerate(cell.marks)}
+    marks = [t0] + [t for _, t in cell.marks]
+    result["setup_parts_s"] = {p: marks[i + 1] - marks[i] for i, (p, _) in enumerate(cell.marks)}
     result["check_s"] = check_s
+    result["unit_s"] = [b - a for a, b in zip(ends, ends[1:])]
     result["checks"] = {c["name"]: {"value": c["value"], "limit": c["limit"]} for c in checks}
     return result
 

@@ -1,11 +1,12 @@
 """Synthetic chain frames: a copy of the generator of
-``twoforone_torch/data/synthetic.py`` (its 10-bead system), kept here so that
-the benchmark makes its training data from the seed without importing the
-program.
+``twoforone_torch/data/synthetic.py`` (its 10-bead system and its chains of
+any length), kept here so that the benchmark makes its training data from
+the seed without importing the program.
 
 Chains whose internal coordinates are drawn from known distributions:
 narrow Gaussians for bonds and angles, von Mises mixtures for the torsions
-(two of the seven bimodal), built by NeRF and given a random orientation.
+(some bimodal, the rest unimodal), built by NeRF and given a random
+orientation.
 """
 
 from __future__ import annotations
@@ -96,6 +97,42 @@ CHAIN10_TORSION_COMPONENTS: Tuple[Tuple[Tuple[float, float, float], ...], ...] =
     ((1.0, -2.4, 10.0),),
     ((1.0, 1.6, 10.0),),
 )
+
+
+def make_chain_components(
+    n_torsions: int, n_slow: int = 2, seed: int = 11
+) -> Tuple[Tuple[Tuple[float, float, float], ...], ...]:
+    """Torsion mixture components for an arbitrary-length chain.
+
+    ``n_slow`` evenly spaced interior torsions are bimodal (metastable slow
+    modes); the rest are unimodal fast modes with deterministic
+    pseudo-random means. A fixed ``seed`` makes the system the same at
+    every call."""
+    rng = np.random.default_rng(seed)
+    slow = set(
+        np.linspace(1, n_torsions - 2, n_slow).round().astype(int).tolist()
+    ) if n_slow > 0 else set()
+    comps = []
+    for k in range(n_torsions):
+        if k in slow:
+            w = float(rng.uniform(0.4, 0.6))
+            mu1 = float(rng.uniform(-np.pi, 0.0))
+            mu2 = mu1 + float(rng.uniform(2.0, 3.0))
+            mu2 = float(np.mod(mu2 + np.pi, 2 * np.pi) - np.pi)
+            comps.append(((w, mu1, 8.0), (1.0 - w, mu2, 8.0)))
+        else:
+            comps.append(((1.0, float(rng.uniform(-np.pi, np.pi)), 10.0),))
+    return tuple(comps)
+
+
+def chain_components(n_beads: int):
+    """The torsion components of a configuration's training frames:
+    ``CHAIN10_TORSION_COMPONENTS`` at 10 beads, else
+    ``make_chain_components(n_beads - 3, 5, 13)``, the system of the
+    program's 56-bead (protein G) synthetic data at any length."""
+    if n_beads == 10:
+        return CHAIN10_TORSION_COMPONENTS
+    return make_chain_components(n_beads - 3, 5, 13)
 
 
 def _chain_frames(rng, torsions: np.ndarray) -> np.ndarray:

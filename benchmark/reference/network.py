@@ -169,11 +169,15 @@ def flat_leaves(tree, prefix=()) -> dict:
     return out
 
 
-def cosine_alphas_cumprod(timesteps: int) -> np.ndarray:
+def cosine_betas(timesteps: int) -> np.ndarray:
     """Nichol-Dhariwal cosine schedule (s = 0.008, betas clipped at 0.999):
-    the cumulative products of 1 - beta, float64."""
+    the betas, float64."""
     x = np.linspace(0.0, timesteps, timesteps + 1, dtype=np.float64)
     ac = np.cos(((x / timesteps) + 0.008) / 1.008 * math.pi * 0.5) ** 2
     ac = ac / ac[0]
-    betas = np.clip(1.0 - ac[1:] / ac[:-1], 0.0, 0.999)
-    return np.cumprod(1.0 - betas)
+    return np.clip(1.0 - ac[1:] / ac[:-1], 0.0, 0.999)
+
+
+def cosine_alphas_cumprod(timesteps: int) -> np.ndarray:
+    """The cosine schedule's cumulative products of 1 - beta, float64."""
+    return np.cumprod(1.0 - cosine_betas(timesteps))

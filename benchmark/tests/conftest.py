@@ -14,7 +14,9 @@ from benchmark.harness import files
 
 TINY = {
     "langevin.1000": dict(chains=4, steps_per_call=10, save_interval=10),
+    "langevin.100": dict(chains=4, steps_per_call=10, save_interval=10),
     "iid.ddim100.4096": dict(batch=8, sample_steps=5),
+    "iid.ancestral1000.256": dict(batch=8),
     "train.512": dict(batch_size=16, frames=400, steps_per_chunk=10, warmup_steps=103),
 }
 

@@ -1,6 +1,7 @@
 """The controls that each cell's check must fail, on the card at the cell's
 own size: the reference put in the program's place and computed in TF32
-(the nearest precision below the configuration's float32 with TF32 off),
+(the nearest precision below the configuration's float32 with TF32 off;
+against the float64 reference where the driver's runs in float64),
 and for training the reference with half of each batch left out. The
 program's own reading comes from the same set-up, so one process gives
 both readings of a seed.
@@ -55,13 +56,12 @@ def readings(cell_name: str, seed: int, device) -> dict:
         half = driver.reference(keep=slice(0, driver.batch // 2))
         return {"program": driver.readings(got, ref), "control": driver.readings(control, ref),
                 "half_batch": driver.readings(half, ref)}
-    program, control = [], []
-    for k in driver.compared():
-        ref = driver.reference(k)
-        with tf32():
-            low = driver.reference(k)
-        program.append(driver.numbers(driver.answer(k), ref))
-        control.append(driver.numbers(low, ref))
+    ks = driver.compared()
+    refs = driver.references(ks)
+    with tf32():
+        lows = driver.references(ks, torch.float32)
+    program = [driver.numbers(driver.answer(k), ref) for k, ref in zip(ks, refs)]
+    control = [driver.numbers(low, ref) for low, ref in zip(lows, refs)]
     return {"program": worst(program), "control": worst(control)}
 
 
